@@ -1,11 +1,13 @@
-"""Headless renderer (port of eidola_tpu/app/headless.py for the
-direct-lighting frame).
+"""Headless renderer (port of eidola_tpu/app/headless.py).
 
 Usage:
     python -m eidola_tpu_torch.app.headless --scene bistro_flat \
-        --size 1920 1080 --frames 4 --no-denoise --no-indirect --device cuda
+        --size 1920 1080 --frames 4 --device cuda
 
-The device is explicit: nothing falls back from CUDA to the CPU.
+renders the default frame (ReSTIR DI + GI, a-trous denoise);
+`--no-indirect` / `--no-denoise` drop those stages.  EIDOLA_TRAV=pallas
+traces every ray through the one-kernel walk (ops/bvh_walk.py).  The
+device is explicit: nothing falls back from CUDA to the CPU.
 """
 from __future__ import annotations
 
@@ -28,10 +30,10 @@ RESTIR_MODES = {"none": 0, "ris": 1, "temporal": 3}
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="eidola_tpu_torch.app.headless",
-        description="EIDOLA headless path tracer on PyTorch + CUDA "
-                    "(direct-lighting frame)")
+        description="EIDOLA headless path tracer on PyTorch + CUDA")
     p.add_argument("-f", "--scene", default="cornell",
-                   help="registry scene name (cornell, stress, bistro_flat)")
+                   help="registry scene name (cornell, punctual, textured, "
+                        "hdr, stress, bistro_flat)")
     p.add_argument("--size", type=int, nargs="+", default=[512],
                    help="WIDTH [HEIGHT] render extent")
     p.add_argument("--frames", type=int, default=16)
@@ -88,6 +90,7 @@ def run(argv=None) -> dict:
 
     cfg = RenderConfig(
         width=w, height=h,
+        env_mode="hdr" if scene.env is not None else "sunsky",
         restir_mode=RESTIR_MODES[args.restir],
         denoise=not args.no_denoise,
         indirect_enabled=not args.no_indirect,
@@ -95,6 +98,9 @@ def run(argv=None) -> dict:
         texture_mips=not args.no_texture_mips,
     )
     params = default_params(device=device)
+    if scene.env is not None:
+        # firefly clamp = 4 x env integral (ref sample_example.cpp:104)
+        params = params._replace(firefly_clamp=4.0 * scene.env.integral)
     tm = default_tonemap(device=device)._replace(
         auto_exposure=torch.tensor(args.auto_exposure, device=device),
         exposure=torch.tensor(args.exposure, dtype=torch.float32,

@@ -22,14 +22,14 @@ from .render.frame import FrameState
 from .render.gbuffer import GBuffer, GBufferView
 from .render.shade_state import State
 from .scene.camera import Camera
-from .scene.data import (Lights, Materials, SceneData, SunSkyParams,
-                         TexStack)
+from .scene.data import (EnvMap, Lights, Materials, SceneData,
+                         SunSkyParams, TexStack)
 from .utils.transfer import to_device
 
 _CLASSES = {c.__name__: c for c in (
     AliasTable, BVH, HitRecord, RenderParams, TonemapParams, FrameState,
-    GBuffer, GBufferView, State, Camera, Lights, Materials, SceneData,
-    SunSkyParams, TexStack)}
+    GBuffer, GBufferView, State, Camera, EnvMap, Lights, Materials,
+    SceneData, SunSkyParams, TexStack)}
 
 
 def to_torch(obj, device):

@@ -1,11 +1,13 @@
 """Procedural scenes + registry (port of the opaque flattened scenes of
-eidola_tpu/models/scenes.py: cornell, stress, bistro_flat)."""
+eidola_tpu/models/scenes.py: cornell, punctual, textured, hdr, stress,
+bistro_flat)."""
 from __future__ import annotations
 
 import numpy as np
 
 from ..scene.camera import Camera, make_camera
-from ..scene.data import SceneData, default_sunsky, upload_scene
+from ..scene.data import SceneData, attach_env, default_sunsky, upload_scene
+from ..scene.hdr import build_env_map
 
 _FACES = [
     (0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5),
@@ -117,6 +119,107 @@ def cornell_box(light_scale: float = 1.0, *, device):
     return scene, cam
 
 
+def punctual_demo(*, device):
+    """Point lights, no environment."""
+    white = {"base_color": [0.8, 0.8, 0.8, 1.0], "roughness": 0.7}
+    shiny = {"base_color": [0.9, 0.4, 0.3, 1.0], "metallic": 0.3,
+             "roughness": 0.3}
+    parts = [
+        (quad_tris([-4, 0, -4], [4, 0, -4], [4, 0, 4], [-4, 0, 4]), 0),
+        (quad_tris([-4, 0, -2.5], [-4, 4, -2.5], [4, 4, -2.5],
+                   [4, 0, -2.5]), 0),
+        (uv_sphere([-0.8, 0.6, 0], 0.6), 1),
+        (box_tris([0.9, 0.5, 0.3], [0.45, 0.5, 0.45]), 0),
+    ]
+    tris, mats = _concat(parts)
+    punctual = {
+        "pos": np.asarray([[2.0, 3.0, 2.0], [-2.5, 2.0, 1.0]], np.float32),
+        "color": np.asarray([[60.0, 55.0, 50.0], [20.0, 30.0, 60.0]],
+                            np.float32),
+        "type": np.asarray([0, 0], np.int32),
+    }
+    scene = upload_scene(
+        tris[:, 0], tris[:, 1], tris[:, 2], device=device,
+        mat_ids=mats, materials=[white, shiny], punctual=punctual,
+        sunsky=default_sunsky()._replace(enabled=np.int32(0)),
+    )
+    cam = make_camera(eye=[0, 1.5, 4.0], center=[0, 0.7, 0], fovy_deg=50.0,
+                      device=device)
+    return scene, cam
+
+
+def textured_demo(*, device):
+    """Checkerboard-textured floor + striped box under sun & sky."""
+    check = np.zeros((64, 64, 4), np.float32)
+    yy, xx = np.mgrid[0:64, 0:64]
+    c = ((yy // 8 + xx // 8) % 2).astype(np.float32)
+    check[..., 0] = 0.15 + 0.7 * c
+    check[..., 1] = 0.15 + 0.55 * c
+    check[..., 2] = 0.15 + 0.35 * c
+    check[..., 3] = 1.0
+    stripes = np.zeros((32, 32, 4), np.float32)
+    stripes[..., 0] = 0.9
+    stripes[..., 1] = np.where((np.arange(32) // 4 % 2)[None, :], 0.7, 0.2)
+    stripes[..., 2] = 0.2
+    stripes[..., 3] = 1.0
+
+    floor = quad_tris([-6, 0, -6], [6, 0, -6], [6, 0, 6], [-6, 0, 6])
+    box = box_tris([0, 0.75, 0], [0.75, 0.75, 0.75])
+    tris = np.concatenate([floor, box])
+    mats = np.concatenate([np.zeros(floor.shape[0], np.int32),
+                           np.ones(box.shape[0], np.int32)])
+    uvs = np.zeros((tris.shape[0], 3, 2), np.float32)
+    uvs[:2] = (tris[:2][..., [0, 2]] + 6.0) / 12.0 * 4.0
+    uvs[2:] = (tris[2:][..., [0, 1]] + 1.5) / 3.0
+    scene = upload_scene(
+        tris[:, 0], tris[:, 1], tris[:, 2], device=device, uvs=uvs,
+        mat_ids=mats,
+        materials=[
+            {"base_color": [1, 1, 1, 1], "roughness": 0.85, "base_tex": 0},
+            {"base_color": [1, 1, 1, 1], "roughness": 0.35, "base_tex": 1},
+        ],
+        textures=[check, stripes],
+    )
+    cam = make_camera(eye=[3.2, 2.4, 4.2], center=[0, 0.6, 0], fovy_deg=45.0,
+                      device=device)
+    return scene, cam
+
+
+def hdr_env_demo(*, device):
+    """Boxes under a procedural HDR environment map (sun blob + sky
+    gradient): the alias-map environment sampling path (env_mode='hdr')."""
+    h, w = 32, 64
+    yy = np.linspace(0, np.pi, h)[:, None]
+    xx = np.linspace(0, 2 * np.pi, w)[None, :]
+    img = np.zeros((h, w, 3), np.float32)
+    img[..., 2] = 0.4 + 0.3 * np.cos(yy) * np.ones_like(xx)
+    img[..., 1] = 0.3
+    img[..., 0] = 0.25
+    sun = np.exp(-(((yy - 0.9) ** 2) + (xx - 1.5) ** 2) * 40.0)
+    img[..., 0] += 120.0 * sun
+    img[..., 1] += 100.0 * sun
+    img[..., 2] += 60.0 * sun
+
+    ground = {"base_color": [0.6, 0.6, 0.55, 1.0], "roughness": 0.9}
+    shiny = {"base_color": [0.85, 0.3, 0.25, 1.0], "metallic": 0.6,
+             "roughness": 0.25}
+    parts = [
+        (quad_tris([-8, 0, -8], [8, 0, -8], [8, 0, 8], [-8, 0, 8]), 0),
+        (box_tris([-0.8, 0.8, 0], [0.5, 0.8, 0.5]), 1),
+        (uv_sphere([0.9, 0.5, 0.6], 0.5), 1),
+    ]
+    tris, mats = _concat(parts)
+    scene = upload_scene(
+        tris[:, 0], tris[:, 1], tris[:, 2], device=device,
+        mat_ids=mats, materials=[ground, shiny],
+        sunsky=default_sunsky()._replace(enabled=np.int32(0)),
+    )
+    scene = attach_env(scene, build_env_map(img, device=device))
+    cam = make_camera(eye=[0, 1.6, 4.2], center=[0, 0.7, 0], fovy_deg=50.0,
+                      device=device)
+    return scene, cam
+
+
 def stress_grid(n: int = 12, *, device):
     """n^2-sphere grid under sun&sky — triangle-count stress scene."""
     rng = np.random.default_rng(0)
@@ -186,6 +289,9 @@ def bistro_flat(target_mtris: float = 2.83, *, device):
 
 _REGISTRY = {
     "cornell": cornell_box,
+    "punctual": punctual_demo,
+    "textured": textured_demo,
+    "hdr": hdr_env_demo,
     "stress": stress_grid,
     "bistro_flat": bistro_flat,
 }

@@ -1,7 +1,7 @@
 """O(1) discrete sampling via alias tables (port of
 eidola_tpu/ops/alias_table.py; ref src/alias_table.hpp:21-126).
 
-The table is built on the host in numpy (or by eidola_tpu.native's C++);
+The table is built on the host in numpy (or by the port's C++ in native/);
 `sample_alias` is two gathers per candidate on the device."""
 from __future__ import annotations
 
@@ -53,9 +53,9 @@ def build_alias_table_np(weights: np.ndarray):
 
 def make_alias_table(weights: np.ndarray):
     """Host build -> (AliasTable of numpy arrays, total weight).  Uses the
-    C++ construction in eidola_tpu.native when it is available, like the JAX
+    C++ construction in native/ when it is available, like the JAX
     package."""
-    from eidola_tpu.native import build_alias_native
+    from ..native import build_alias_native
 
     w = np.asarray(weights, np.float64).ravel()
     out = build_alias_native(w) if w.size else None

@@ -1,10 +1,11 @@
 """Stackless threaded BVH: host build + packet traversal (port of
 eidola_tpu/ops/bvh.py, the flattened opaque path).
 
-- `build_bvh` is the JAX package's numpy build (binned SAH from
-  `eidola_tpu.ops.bvh_build` or the C++ one in `eidola_tpu.native`,
-  preorder escape links, Morton-ordered leaves, octant walk tables) and
-  always emits the f32 coefficient table the fused drains read.
+- `build_bvh` is the JAX package's host build, on the port's own copies
+  of its builders (binned SAH from `ops/bvh_build.py` or the C++ one in
+  `native/`, preorder escape links, Morton-ordered leaves, octant walk
+  tables from `ops/bvh_oct.py`) and always emits the f32 coefficient
+  table the fused drains read.
 - `_traverse` walks 128-ray packets over the (octant) walk table with
   torch ops: the slab test per packet, leaf events pushed into a
   per-packet queue of depth QUEUE, and a drain whenever any queue fills
@@ -83,10 +84,10 @@ def morton3d(p01: np.ndarray) -> np.ndarray:
 def build_bvh_np(v0, v1, v2, leaf_size: int) -> dict:
     """Host build (eidola_tpu/ops/bvh.py:201-343 without the subset and
     SBVH options): returns the BVH fields as numpy arrays."""
-    from eidola_tpu.native import build_bvh_native
-    from eidola_tpu.ops.bvh_build import (build_sah_topology,
-                                          collect_frontier, flatten_preorder)
-    from eidola_tpu.ops.bvh_oct import build_octant_tables
+    from ..native import build_bvh_native
+    from .bvh_build import build_sah_topology, collect_frontier, \
+        flatten_preorder
+    from .bvh_oct import build_octant_tables
 
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)

@@ -60,6 +60,24 @@ def offset_ray(p, n):
     return torch.where(torch.abs(p) < origin_thresh, p + float_scale * n, p_i)
 
 
+def spherical_uv(v):
+    """Unit direction -> equirect uv (ref common.glsl:68-75)."""
+    theta = torch.arccos(torch.clamp(v[..., 1], -1.0, 1.0))
+    phi = torch.atan2(v[..., 2], v[..., 0])
+    u = phi * (0.5 / math.pi) + 0.5
+    w = theta / math.pi
+    return torch.stack([u, w], dim=-1)
+
+
+def uv_to_dir(uv):
+    """Inverse of spherical_uv."""
+    phi = (uv[..., 0] - 0.5) * (2.0 * math.pi)
+    theta = uv[..., 1] * math.pi
+    st = torch.sin(theta)
+    return torch.stack([st * torch.cos(phi), torch.cos(theta),
+                        st * torch.sin(phi)], dim=-1)
+
+
 def concentric_sample_disk(u1, u2):
     ox = 2.0 * u1 - 1.0
     oy = 2.0 * u2 - 1.0

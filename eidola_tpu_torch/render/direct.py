@@ -103,7 +103,8 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
                  cam: Camera, prev_gbuf: GBuffer, prev_resv: dict,
                  prev_cam: Camera, rng_state, timer=None):
     """K1.  Returns (rng_state, DirectOut).  `timer` (utils.profiler
-    StageTimer) marks primary_trace, shading_ris and shadow_trace."""
+    StageTimer) marks primary_trace, shading_ris, shadow_trace and
+    di_temporal_shade."""
     _unsupported(cfg)
     h, w = cfg.height, cfg.width
     dev = rng_state.device
@@ -199,6 +200,7 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
     illum = _shade(state, wo, sel["li"], sel["wi"]) * big_w[..., None]
     illum = torch.where(state.valid[..., None], illum, 0.0)
     illum = clamp_radiance(illum, params.firefly_clamp)
+    mark("di_temporal_shade")
 
     return rng_state, DirectOut(
         illum_ldr=hdr_to_ldr(illum), emission=emission, gbuf=gbuf, view=view,

@@ -1,7 +1,8 @@
-"""Light sampling for the direct stage (port of the sun&sky parts of
+"""Shared path-tracing library: environment radiance, alias-table light
+sampling, NEE and emitter-hit pdfs (port of
 eidola_tpu/render/pathtrace.py; ref shaders/pathtrace.glsl:40-232,
-env_sampling.glsl, punctual.glsl).  The HDR environment comes with a
-later slice."""
+env_sampling.glsl, punctual.glsl).  `cfg` only selects static structure
+(env mode), never per-lane branches."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -11,6 +12,7 @@ import torch
 from ..ops import rng as erng
 from ..ops.alias_table import sample_alias
 from ..ops.math import cross, dot3, length, normalize
+from ..scene import hdr as ehdr
 from ..scene import sunsky as esky
 from ..scene.data import LIGHT_DIRECTIONAL, LIGHT_SPOT, SceneData
 from .config import RenderConfig, RenderParams
@@ -26,15 +28,15 @@ class LightSample(NamedTuple):
     delta: torch.Tensor
 
 
-def _sunsky_only(cfg: RenderConfig, scene: SceneData):
-    if cfg.env_mode == "hdr" or scene.env is not None:
-        raise NotImplementedError(
-            "HDR environment lighting is ported with ROADMAP A4 "
-            "(scene/hdr.py); this slice runs sun & sky")
+def _hdr(cfg: RenderConfig, scene: SceneData) -> bool:
+    return cfg.env_mode == "hdr" and scene.env is not None
 
 
 def env_enabled(cfg: RenderConfig, scene: SceneData):
-    _sunsky_only(cfg, scene)
+    """Dynamic 0/1: is there an environment light at all?"""
+    if _hdr(cfg, scene):
+        return torch.ones((), dtype=torch.float32,
+                          device=scene.sunsky.enabled.device)
     return scene.sunsky.enabled.to(torch.float32)
 
 
@@ -47,11 +49,25 @@ def env_selection_prob(cfg: RenderConfig, scene: SceneData,
 
 def env_radiance(cfg: RenderConfig, scene: SceneData, params: RenderParams, d):
     """Radiance from the environment along miss direction d."""
+    if _hdr(cfg, scene):
+        return ehdr.env_eval(scene.env, d, params.hdr_multiplier)
     return esky.sky_radiance(scene.sunsky, d) * env_enabled(cfg, scene)
+
+
+def env_pdf_dir(cfg: RenderConfig, scene: SceneData, d):
+    """Solid-angle pdf of the env light sampler for direction d (MIS of an
+    escaped BSDF ray; ref pathtrace.glsl:49-72)."""
+    if _hdr(cfg, scene):
+        return ehdr.env_pdf(scene.env, d)
+    return esky.sun_pdf(scene.sunsky, d)
 
 
 def sample_env(cfg: RenderConfig, scene: SceneData, params: RenderParams,
                u1, u2, u3, u4):
+    """Draw an env direction.  Returns (wi, pdf, li)."""
+    if _hdr(cfg, scene):
+        return ehdr.env_sample(scene.env, u1, u2, u3, u4,
+                               params.hdr_multiplier)
     wi, pdf, li = esky.sample_sun(scene.sunsky, u1, u2)
     return wi, pdf, li * env_enabled(cfg, scene)
 
@@ -154,3 +170,24 @@ def sample_direct_light(cfg: RenderConfig, scene: SceneData,
                     * torch.clamp(1.0 - trig_p, min=1e-6)))
     return rng_state, LightSample(li=li, wi=wi, dist=dist, pdf=pdf,
                                   delta=pick_punc)
+
+
+def light_pdf_for_bsdf_dir(cfg: RenderConfig, scene: SceneData,
+                           params: RenderParams, d, hit_tri, hit_dist,
+                           hit_cos):
+    """pdf of sample_direct_light producing direction d: the light half of
+    the MIS weight of a BSDF-sampled ray (ref indirect_stage.comp:143-216).
+    hit_tri < 0 means the ray escaped to the environment; hit_dist and
+    hit_cos describe the emitter hit otherwise."""
+    env_p = env_selection_prob(cfg, scene, params)
+    trig_p = scene.lights.trig_samp_prob
+    escaped = hit_tri < 0
+    pdf_env = env_pdf_dir(cfg, scene, d) * env_p
+    tid = torch.clamp(hit_tri, min=0)
+    pmf = scene.tri_light_pmf[tid]
+    area = scene.tri_light_area[tid]
+    pdf_trig = (pmf * hit_dist * hit_dist
+                / torch.clamp(area * torch.abs(hit_cos), min=1e-9)
+                * (1.0 - env_p) * trig_p)
+    pdf_trig = torch.where((pmf > 0) & ~escaped, pdf_trig, 0.0)
+    return torch.where(escaped, pdf_env, pdf_trig)

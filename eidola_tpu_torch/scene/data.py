@@ -68,6 +68,15 @@ class Lights(NamedTuple):
     trig_samp_prob: torch.Tensor
 
 
+class EnvMap(NamedTuple):
+    """HDR environment + solid-angle-weighted alias map
+    (ref src/hdr_sampling.cpp:107-242)."""
+    image: torch.Tensor     # (He, We, 3) f32 linear radiance
+    table: AliasTable       # over He*We texels
+    integral: torch.Tensor  # () f32 luminance integral over the sphere
+    average: torch.Tensor   # () f32 average luminance
+
+
 class SunSkyParams(NamedTuple):
     sun_direction: torch.Tensor
     sun_intensity: torch.Tensor
@@ -99,7 +108,7 @@ class SceneData(NamedTuple):
     materials: Materials
     textures: TexStack
     lights: Lights
-    env: Optional[object]
+    env: Optional[EnvMap]
     sunsky: SunSkyParams
     inst: Optional[object] = None
     bvh_alpha: Optional[BVH] = None
@@ -329,8 +338,8 @@ def upload_scene(v0, v1, v2, *, device, normals=None, uvs=None,
                  leaf_size: int | None = None) -> SceneData:
     """Flatten a world-space opaque triangle soup into SceneData + BVH on
     `device`.  Emissive triangles become the triangle-light set.
-    Alpha-tested materials (the opaque/alpha split) and HDR environments
-    come with later slices."""
+    Alpha-tested materials (the opaque/alpha split) come with a later
+    slice; an HDR environment is attached with `attach_env`."""
     v0, v1, v2, prep = _prep_attrs(v0, v1, v2, normals, uvs, tangents,
                                    colors, mat_ids)
     mat_ids = prep["mat"]
@@ -380,3 +389,9 @@ def upload_scene(v0, v1, v2, *, device, normals=None, uvs=None,
         sunsky=sunsky,
     )
     return to_device(host, device)
+
+
+def attach_env(scene: SceneData, env: EnvMap) -> SceneData:
+    """Swap the HDR environment on a loaded scene (as the JAX package's
+    attach_env; ref sample_example.cpp:97-106)."""
+    return scene._replace(env=env)

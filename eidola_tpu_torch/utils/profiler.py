@@ -4,6 +4,10 @@
   the stream: on a CUDA device it records a CUDA event (device time, no
   sync), on the CPU it reads the host clock.  `summary()` returns the
   milliseconds of each stage, summed over every frame that marked it.
+  A frame marks primary_trace, shading_ris, shadow_trace and
+  di_temporal_shade (render/direct.py), gi_trace and gi_resample
+  (render/indirect.py), denoise and compose_post (render/frame.py), so
+  the stages cover the whole frame.
 - `trace(fn, out_dir, device)` runs `fn` once under torch.profiler, writes
   a Chrome trace and returns the wall time, the summed kernel time and
   the kernels that took the most device time.

@@ -96,12 +96,17 @@ print("ok", img.mean())
 
 
 def test_unported_options_raise():
-    from eidola_tpu_torch.render.config import RenderConfig
-    from eidola_tpu_torch.render.frame import render_frame
+    from eidola_tpu_torch.render.config import (RenderConfig, default_params,
+                                                default_tonemap)
+    from eidola_tpu_torch.render.frame import init_frame_state, render_frame
 
-    for cfg in (RenderConfig(denoise=False), RenderConfig(
-            indirect_enabled=False)):
+    scene, cam = TS.load_scene("cornell", device="cpu")
+    for opt in (dict(primary_seed=True), dict(shadow_cadence=2),
+                dict(spatial_rounds=1), dict(alpha_geometry=True)):
+        cfg = RenderConfig(width=16, height=16, **opt)
         with pytest.raises(NotImplementedError):
-            render_frame(cfg, None, None, None, None, None)
+            render_frame(cfg, scene, cam, default_params(device="cpu"),
+                         default_tonemap(device="cpu"),
+                         init_frame_state(cfg, cam))
     with pytest.raises(KeyError):
         TS.load_scene("bistro_standin", device="cpu")
