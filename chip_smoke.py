@@ -9,8 +9,8 @@ imports nothing of JAX and nothing of the JAX package, and in order:
 1. prints the card's name and power limit (nvidia-smi) and the torch and
    CUDA versions;
 2. builds every native source of the port at once, one compiler process
-   each: csrc/bvh_fused.cu and csrc/bvh_walk.cu with nvcc, the C++ host
-   builders (native/src/eidola_native.cpp) with g++;
+   each: csrc/bvh_fused.cu, csrc/bvh_mxu.cu and csrc/bvh_walk.cu with
+   nvcc, the C++ host builders (native/src/eidola_native.cpp) with g++;
 3. DI phase: 2 frames of bistro_flat at 1920x1080 through the headless
    entry point with --no-denoise --no-indirect (the default traversal:
    torch walk + the fused drain kernels);
@@ -20,24 +20,37 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    and the stage split;
 5. GI-xla phase: the same default frame under the default traversal at
    960x540, 2 frames, so the drain kernels run on sorted GI rays;
-   each of phases 3-5 sets every launch count to 0 just before it and
+6. standin phase: the JAX bench's headline frame, bistro_standin (2.89M
+   instanced triangles, textures, alpha-MASK foliage split into a flat
+   BVH) at 1920x1080 with the default RenderConfig and the alpha HitTest
+   on (set by the app from the scene), EIDOLA_TRAV=pallas, 2 frames: the
+   instanced opaque bulk takes the torch walk and the fused drains, the
+   flat alpha BVH the walk kernel;
+7. mxu phase: bistro_standin at 1920x1080 with --no-denoise
+   --no-indirect under EIDOLA_MT=mxu and the default traversal, 2
+   frames: every closest-hit drain goes through mt_mxu, and neither the
+   fused drains nor the walk kernels run;
+   each of phases 3-7 sets every launch count to 0 just before it and
    reads them just after, checks the image (shape, finite, in [0, 1],
    not black) and the accumulation count, that each kernel of its path
-   was launched and that the kernels of the other traversal were not,
-   and keeps the arguments of each kernel's largest call;
-6. kernel phase: each kernel on those arguments (the frames' own shapes:
+   was launched and that the kernels of the other paths were not, and
+   keeps the arguments of each kernel's largest call;
+8. kernel phase: each kernel on those arguments (the frames' own shapes:
    leaf 64, the full bistro tables) against its plain torch version on
    the card, bitwise, with both times from CUDA events; the walk kernels
    also against walk_ref's per-packet step and event counts, which give
    their bound; plus the drain kernels on a synthetic case with an
    invalid tail and exact-t ties, which the frames do not hold;
-7. goldens on the card: cornell, punctual, textured and hdr at 64x64,
-   max_depth=2, traversal_max_steps=1024, 4 frames, through the walk
-   kernel, each within 0.02 mean abs of tests/golden/*_64_d2_f4.npy;
-8. holds small DI frames on the card against the same frames through
+9. goldens on the card: cornell, punctual, textured, hdr and alpha (the
+   HitTest on) at 64x64, max_depth=2, traversal_max_steps=1024, 4
+   frames, through the walk kernel, each within 0.02 mean abs of
+   tests/golden/*_64_d2_f4.npy;
+10. holds small DI frames on the card against the same frames through
    the plain versions on the CPU (cornell 32x32, stress 64x64);
-9. prints one JSON line of per-kernel launches, errors, times and
-   bounds, then, last, {"ok": true, "device": {...}}.
+11. prints one JSON line with an entry per kernel and path (the
+   bistro_flat DI and GI frames, the standin frame, the mxu DI frame):
+   that phase's launches and the kernel's error, times and bound on the
+   phase's largest call; then, last, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.
 """
@@ -55,21 +68,34 @@ DI_ARGS = BISTRO + ["--size", "1920", "1080", "--frames", "2",
                     "--no-denoise", "--no-indirect"]
 GI_ARGS = BISTRO + ["--size", "1920", "1080", "--frames", "4"]
 GI_XLA_ARGS = BISTRO + ["--size", "960", "540", "--frames", "2"]
+STANDIN = ["--scene", "bistro_standin", "--quiet", "--size", "1920", "1080",
+           "--frames", "2"]
+MXU_ARGS = STANDIN + ["--no-denoise", "--no-indirect"]
 FUSED_SRC = "eidola_tpu_torch/csrc/bvh_fused.cu"
 WALK_SRC = "eidola_tpu_torch/csrc/bvh_walk.cu"
+MXU_SRC = "eidola_tpu_torch/csrc/bvh_mxu.cu"
 KERNELS = {   # name: (TPU kernel it replaces, source)
     "mt_fused": ("eidola_tpu/ops/bvh_fused.py:148", FUSED_SRC),
     "mt_any_fused": ("eidola_tpu/ops/bvh_fused.py:254", FUSED_SRC),
     "walk_closest": ("eidola_tpu/ops/bvh_pallas.py:43", WALK_SRC),
     "walk_any": ("eidola_tpu/ops/bvh_pallas.py:43", WALK_SRC),
+    "mt_mxu": ("eidola_tpu/ops/bvh_mxu.py:83", MXU_SRC),
 }
 DRAINS = ("mt_fused", "mt_any_fused")
 WALKS = ("walk_closest", "walk_any")
+MXU = ("mt_mxu",)
 # H100 SXM published peaks (dense f32 outside the tensor cores; HBM3)
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-GOLDENS = {"cornell": "sunsky", "hdr": "hdr", "punctual": "sunsky",
-           "textured": "sunsky"}
+GOLDENS = {"alpha": "sunsky", "cornell": "sunsky", "hdr": "hdr",
+           "punctual": "sunsky", "textured": "sunsky"}
+STANDIN_TRIS = (2.8e6, 3.0e6)   # 729 lots x (1,728 + 4 x ~560)
+# Moller-Trumbore as a dot of coefficients and ray features (build_cmat):
+# the products by the nonzero coefficients (det 3, t 4, u 6, v 6) and
+# their sums, plus the epilogue.  The drain kernels also multiply the 21
+# zero coefficients of each triangle; the bound does not count them.
+MT_DOT_OPS = 19 + 15
+MT_EPI_OPS = 10
 
 
 def fail(msg: str) -> None:
@@ -101,16 +127,17 @@ def time_ms(fn, reps: int) -> float:
 
 
 def _launches() -> dict:
-    from eidola_tpu_torch.ops import bvh_fused, bvh_walk
+    from eidola_tpu_torch.ops import bvh_fused, bvh_mxu, bvh_walk
 
-    return {**bvh_fused.LAUNCHES, **bvh_walk.LAUNCHES}
+    return {**bvh_fused.LAUNCHES, **bvh_walk.LAUNCHES, **bvh_mxu.LAUNCHES}
 
 
 def _reset_launches() -> None:
-    from eidola_tpu_torch.ops import bvh_fused, bvh_walk
+    from eidola_tpu_torch.ops import bvh_fused, bvh_mxu, bvh_walk
 
     bvh_fused.reset_launches()
     bvh_walk.reset_launches()
+    bvh_mxu.reset_launches()
 
 
 class Capture:
@@ -156,6 +183,12 @@ def walk_capture():
     return Capture(bvh_walk, WALKS, lambda a: a[2].shape[1])     # packets
 
 
+def mxu_capture():
+    from eidola_tpu_torch.ops import bvh_mxu
+
+    return Capture(bvh_mxu, MXU, lambda a: a[0].shape[0])        # events
+
+
 def check_frame(res, shape, frames, label) -> None:
     import numpy as np
 
@@ -170,27 +203,33 @@ def check_frame(res, shape, frames, label) -> None:
         fail(f"{label}: accum_count {float(state.accum_count)} != {frames}")
 
 
-def run_phase(label, argv, shape, frames, trav, capture, used, unused):
+def run_phase(label, argv, shape, frames, trav, captures, used, unused,
+              mt="fused"):
     """One main-path run through the headless entry point, its launch
-    counts set to 0 just before and read just after; `capture` keeps the
+    counts set to 0 just before and read just after; `captures` keep the
     arguments of each watched kernel's largest call."""
+    import contextlib
+
     import torch
 
     from eidola_tpu_torch.app import headless
-    from eidola_tpu_torch.ops import packets
+    from eidola_tpu_torch.ops import bvh, packets
 
-    packets.TRAV = trav
+    packets.TRAV, bvh.MT = trav, mt
     try:
-        with capture:
+        with contextlib.ExitStack() as stack:
+            for cap in captures:
+                stack.enter_context(cap)
             _reset_launches()
             res = headless.run(argv)
             torch.cuda.synchronize()
             launches = _launches()
     finally:
-        packets.TRAV = "xla"
+        packets.TRAV, bvh.MT = "xla", "fused"
     check_frame(res, shape, frames, label)
+    args = {k: v for cap in captures for k, v in cap.args.items()}
     for name in used:
-        if launches[name] <= 0 or name not in capture.args:
+        if launches[name] <= 0 or name not in args:
             fail(f"{label}: {name} was never launched on its path")
     for name in unused:
         if launches[name] != 0:
@@ -203,10 +242,20 @@ def run_phase(label, argv, shape, frames, trav, capture, used, unused):
               {k: round(v, 3) for k, v in res["stage_ms_per_frame"].items()})
           + f"; image mean {res['image_mean']:.4f}; launches "
           + json.dumps({k: launches[k] for k in used})
-          + f"; scene+BVH {res['load_s']:.1f}s", flush=True)
-    for name, sizes in capture.sizes.items():
-        print(f"{label}: {name} calls (size): {sizes}", flush=True)
-    return launches
+          + f"; scene+BVH {res['load_s']:.1f}s; {res['n_tris']} triangles, "
+          f"alpha_geometry {res['alpha_geometry']}", flush=True)
+    for cap in captures:
+        for name, sizes in cap.sizes.items():
+            print(f"{label}: {name} calls (size): {sizes}", flush=True)
+    return launches, res
+
+
+def check_standin(res) -> None:
+    """The headline frame: alpha HitTest on, ~2.89M instanced triangles."""
+    lo, hi = STANDIN_TRIS
+    if not res["alpha_geometry"] or not lo <= res["n_tris"] <= hi:
+        fail(f"standin: alpha_geometry {res['alpha_geometry']}, "
+             f"{res['n_tris']} triangles (want True, {lo:.0f}-{hi:.0f})")
 
 
 def _equal_bits(got, want) -> float:
@@ -227,8 +276,8 @@ def _equal_bits(got, want) -> float:
 def drain_bound(name, args) -> tuple[float, str]:
     """Least time for one drain on these inputs: the distinct leaves' 10
     used table rows, the event rows' planes in and results out, against
-    the per-lane dot of 10 features over 4n columns plus the MT epilogue
-    (~10 flops a triangle)."""
+    each lane's Moller-Trumbore test of every triangle of its event's
+    leaf (MT_DOT_OPS + MT_EPI_OPS)."""
     import torch
 
     from eidola_tpu_torch.ops.bvh_fused import NFEAT
@@ -239,7 +288,7 @@ def drain_bound(name, args) -> tuple[float, str]:
     n_out = 4 if name == "mt_fused" else 1
     bytes_ = (leaves * NFEAT * 4 * n * 4 + ce * 128 * 4 * (8 + n_out)
               + ce * 4 * 8)
-    flops = ce * 128 * n * (2 * NFEAT * 4 + 10)
+    flops = ce * 128 * n * (MT_DOT_OPS + MT_EPI_OPS)
     return _bound(bytes_, flops)
 
 
@@ -259,6 +308,19 @@ def walk_bound(walk, leaf_blocks, rays, stats) -> tuple[float, str]:
               + min(events, leaf_blocks.shape[0]) * n * 12 * 4
               + rays.numel() * 4 + rays[0].numel() * 4 * 4)
     flops = 128 * (steps * WALK_FLOP + events * n * MT_FLOP)
+    return _bound(bytes_, flops)
+
+
+def mxu_bound(args) -> tuple[float, str]:
+    """Least time for one mt_mxu call on these inputs: each event's leaf
+    row and ray planes read once and its 4 result planes written once,
+    against each lane's Moller-Trumbore test of every triangle of every
+    event (the count drain_bound uses; the function tests all n
+    triangles whatever the data)."""
+    row, n = args[0], args[1]
+    ce = row.shape[0]
+    bytes_ = row.numel() * 4 + ce * 128 * 4 * (8 + 4)
+    flops = ce * 128 * n * (MT_DOT_OPS + MT_EPI_OPS)
     return _bound(bytes_, flops)
 
 
@@ -290,6 +352,31 @@ def check_drain(name, args, label) -> dict:
           f"{args[-1]}, {args[0].shape[0]}-leaf table; bitwise equal to "
           f"plain; cuda {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_mxu(args, label) -> dict:
+    """mt_mxu on a captured drain against mt_mxu_ref on the card."""
+    import torch
+
+    from eidola_tpu_torch.ops import bvh_mxu as M
+
+    got = M.mt_mxu(*args)
+    want = M.mt_mxu_ref(*args)
+    torch.cuda.synchronize()
+    err = _equal_bits(got, want)
+    if err != 0.0:
+        fail(f"mt_mxu ({label}): CUDA kernel differs from its plain version "
+             f"(max abs err {err}); the tolerance is bitwise")
+    ms = time_ms(lambda: M.mt_mxu(*args), 20)
+    plain_ms = time_ms(lambda: M.mt_mxu_ref(*args), 3)
+    bound_ms, bound_by = mxu_bound(args)
+    hit = float((got[0] < 1e30).float().mean())
+    print(f"mt_mxu ({label}): {args[0].shape[0]} events x 128 lanes, leaf "
+          f"{args[1]}; hit lanes {hit:.3f}; bitwise equal to plain; cuda "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -340,17 +427,19 @@ def check_walk(name, args, label) -> dict:
 def synthetic_phase(dev) -> None:
     """An extra case the frames do not give: runs of 1-32 events of random
     sub-packets with an invalid tail and exact-t ties (utils/drain_case)."""
-    from eidola_tpu_torch.utils.drain_case import (make_case, random_runs,
-                                                   torch_args)
+    from eidola_tpu_torch.utils.drain_case import (make_case, mxu_args,
+                                                   random_runs, torch_args)
 
     n, ce, leaves = 64, 4096, 45056
     case = make_case(n, leaves, random_runs(ce - 96, 32, 1), ce, seed=2,
                      spread=60.0)
+    label = f"synthetic, {ce - case['n_valid']} invalid tail rows"
     for name in DRAINS:
         args = (*torch_args(case, dev, name == "mt_fused"), n)
-        check_drain(name, args, f"synthetic, {ce - case['n_valid']} invalid "
-                                "tail rows")
+        check_drain(name, args, label)
         del args
+    row, *planes = mxu_args(case, dev)
+    check_mxu((row, n, *planes), label + " (dead rays)")
 
 
 def golden_phase() -> None:
@@ -369,7 +458,8 @@ def golden_phase() -> None:
     try:
         for key, env_mode in GOLDENS.items():
             cfg = RenderConfig(width=64, height=64, max_depth=2,
-                               traversal_max_steps=1024, env_mode=env_mode)
+                               traversal_max_steps=1024, env_mode=env_mode,
+                               alpha_geometry=key == "alpha")
             scene, cam = load_scene(key, device=dev)
             params = default_params(device=dev)
             tm = default_tonemap(device=dev)
@@ -389,7 +479,7 @@ def golden_phase() -> None:
             if not err < 0.02:
                 fail(f"golden {key}: mean abs err {err} >= 0.02")
             if min(launches[k] for k in WALKS) <= 0 or \
-                    max(launches[k] for k in DRAINS) != 0:
+                    max(launches[k] for k in DRAINS + MXU) != 0:
                 fail(f"golden {key}: not traced through the walk kernel "
                      f"({launches})")
     finally:
@@ -450,12 +540,12 @@ def main() -> None:
     build_phase()
 
     di_cap, gi_cap, gx_cap = drain_capture(), walk_capture(), drain_capture()
-    di_launches = run_phase("DI", DI_ARGS, (1080, 1920, 3), 2, "xla",
-                            di_cap, DRAINS, WALKS)
-    gi_launches = run_phase("GI (pallas)", GI_ARGS, (1080, 1920, 3), 4,
-                            "pallas", gi_cap, WALKS, DRAINS)
+    di_launches, _ = run_phase("DI", DI_ARGS, (1080, 1920, 3), 2, "xla",
+                               [di_cap], DRAINS, WALKS + MXU)
+    gi_launches, _ = run_phase("GI (pallas)", GI_ARGS, (1080, 1920, 3), 4,
+                               "pallas", [gi_cap], WALKS, DRAINS + MXU)
     run_phase("GI (xla, 960x540)", GI_XLA_ARGS, (540, 960, 3), 2, "xla",
-              gx_cap, DRAINS, WALKS)
+              [gx_cap], DRAINS, WALKS + MXU)
     torch.cuda.empty_cache()
 
     times = {}
@@ -469,16 +559,48 @@ def main() -> None:
                                  "largest GI-frame traversal")
     del gi_cap
     torch.cuda.empty_cache()
+
+    st_drains, st_walks = drain_capture(), walk_capture()
+    st_launches, st = run_phase(
+        "standin (pallas)", STANDIN, (1080, 1920, 3), 2, "pallas",
+        [st_drains, st_walks], DRAINS + ("walk_closest",), MXU)
+    check_standin(st)
+    del st
+    mx_cap = mxu_capture()
+    mx_launches, mx = run_phase(
+        "standin mxu (DI, xla)", MXU_ARGS, (1080, 1920, 3), 2, "xla",
+        [mx_cap], MXU, DRAINS + WALKS, mt="mxu")
+    check_standin(mx)
+    del mx
+    torch.cuda.empty_cache()
+    st_times = {name: check_drain(
+        name, st_drains.args[name],
+        "largest standin drain (instanced, object space)") for name in DRAINS}
+    st_times["walk_closest"] = check_walk(
+        "walk_closest", st_walks.args["walk_closest"],
+        "largest standin alpha-BVH traversal")
+    del st_drains, st_walks
+    times["mt_mxu"] = check_mxu(mx_cap.args["mt_mxu"],
+                                "largest standin mxu drain")
+    del mx_cap
+    torch.cuda.empty_cache()
     synthetic_phase(torch.device("cuda"))
     golden_phase()
     reference_phase()
 
-    launches = {**{k: di_launches[k] for k in DRAINS},
-                **{k: gi_launches[k] for k in WALKS}}
+    # (kernel, path, launches in that phase, times on its largest call)
+    rows = ([(k, "DI bistro_flat 1920x1080", di_launches[k], times[k])
+             for k in DRAINS]
+            + [(k, "GI bistro_flat 1920x1080 pallas", gi_launches[k],
+                times[k]) for k in WALKS]
+            + [(k, "standin 1920x1080 pallas", st_launches[k], st_times[k])
+               for k in st_times]
+            + [(k, "standin DI 1920x1080 mxu", mx_launches[k], times[k])
+               for k in MXU])
     line = {"kernels": [
-        {"name": k, "route": "cuda", "source": KERNELS[k][1],
-         "replaces": KERNELS[k][0], "launches": launches[k], **times[k],
-         "library_ms": None} for k in KERNELS]}
+        {"name": k, "path": path, "route": "cuda", "source": KERNELS[k][1],
+         "replaces": KERNELS[k][0], "launches": n, **t, "library_ms": None}
+        for k, path, n, t in rows]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

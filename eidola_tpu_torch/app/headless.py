@@ -1,13 +1,16 @@
 """Headless renderer (port of eidola_tpu/app/headless.py).
 
 Usage:
-    python -m eidola_tpu_torch.app.headless --scene bistro_flat \
-        --size 1920 1080 --frames 4 --device cuda
+    python -m eidola_tpu_torch.app.headless --scene bistro_standin \
+        --size 1920 1080 --frames 4
 
-renders the default frame (ReSTIR DI + GI, a-trous denoise);
-`--no-indirect` / `--no-denoise` drop those stages.  EIDOLA_TRAV=pallas
-traces every ray through the one-kernel walk (ops/bvh_walk.py).  The
-device is explicit: nothing falls back from CUDA to the CPU.
+renders the default frame (ReSTIR DI + GI, a-trous denoise) on the card;
+`--device cpu` renders on the CPU instead, and nothing falls back from
+CUDA to the CPU.  `--no-indirect` / `--no-denoise` drop those stages.
+The alpha HitTest is on exactly when the scene has an alpha-tested
+material, as in the JAX app.  EIDOLA_TRAV=pallas traces every flat BVH
+through the one-kernel walk (ops/bvh_walk.py); EIDOLA_MT=mxu drains the
+torch walk's leaves with ops/bvh_mxu.py instead of the fused kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from ..models.scenes import load_scene
 from ..render.config import RenderConfig, default_params, default_tonemap
 from ..render.frame import init_frame_state, make_step
+from ..scene.data import ALPHA_OPAQUE
 from ..scene.camera import advance
 from ..utils.profiler import StageTimer, trace
 
@@ -33,12 +37,14 @@ def build_argparser() -> argparse.ArgumentParser:
         description="EIDOLA headless path tracer on PyTorch + CUDA")
     p.add_argument("-f", "--scene", default="cornell",
                    help="registry scene name (cornell, punctual, textured, "
-                        "hdr, stress, bistro_flat)")
+                        "hdr, stress, alpha, mini_grove, bistro_flat, "
+                        "bistro_standin, bistro_hdr)")
     p.add_argument("--size", type=int, nargs="+", default=[512],
                    help="WIDTH [HEIGHT] render extent")
     p.add_argument("--frames", type=int, default=16)
-    p.add_argument("--device", required=True,
-                   help="torch device to render on, e.g. cuda or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda; cpu "
+                        "renders on the CPU)")
     p.add_argument("--out", default=None, help="PNG path for the last frame")
     p.add_argument("--hdr-out", default=None, help="also dump linear .npy")
     p.add_argument("--restir", choices=sorted(RESTIR_MODES),
@@ -96,6 +102,9 @@ def run(argv=None) -> dict:
         indirect_enabled=not args.no_indirect,
         tonemap_kind={"uncharted2": 0, "hejl": 1, "aces": 2}[args.tonemap],
         texture_mips=not args.no_texture_mips,
+        # the alpha HitTest only where the scene needs it (static switch)
+        alpha_geometry=bool(
+            (scene.materials.alpha_mode != ALPHA_OPAQUE).any()),
     )
     params = default_params(device=device)
     if scene.env is not None:
@@ -122,10 +131,15 @@ def run(argv=None) -> dict:
         frame_ms.append((time.perf_counter() - t1) * 1e3)
         log(f"frame {i}: {frame_ms[-1]:.1f} ms")
 
+    steady = frame_ms[1:] or frame_ms
     profile = None
     if args.profile_trace:
         profile = trace(lambda: step(scene, advance(cam), params, tm, state),
                         args.profile_trace, device)
+        # the profiler slows the host side of the frame it traces, so its
+        # busy share is a floor: the kernel time over a steady frame's wall
+        profile["steady_busy_share"] = profile["kernel_ms"] / float(
+            np.mean(steady))
         log(json.dumps(profile))
 
     img = outputs["image"].cpu().numpy()
@@ -136,13 +150,13 @@ def run(argv=None) -> dict:
                         ).save(args.out)
     if args.hdr_out:
         np.save(args.hdr_out, outputs["hdr"].cpu().numpy())
-    steady = frame_ms[1:] or frame_ms
     stages = {k: v / len(steady) for k, v in timer.summary().items()}
     summary = {
         "scene": args.scene, "width": w, "height": h, "frames": args.frames,
         "device": str(device), "load_s": load_s,
         "ms_per_frame": float(np.mean(steady)), "frame_ms": frame_ms,
         "stage_ms_per_frame": stages, "image_mean": float(img.mean()),
+        "alpha_geometry": cfg.alpha_geometry,
         "n_tris": int(scene.bvh.n_tris),
         "n_leaves": int(scene.bvh.leaf_blocks.shape[0]),
         "profile": profile,

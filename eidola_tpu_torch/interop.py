@@ -1,11 +1,12 @@
 """Carry state between the JAX package and the port through numpy.
 
-`to_torch` maps the JAX package's NamedTuples (SceneData, BVH, Camera,
-RenderParams, TonemapParams, FrameState, GBuffer, ...) to the port's
-classes of the same name, field by field, converting every array with
-numpy: integer arrays (uint32 words included) become int64 tensors,
-floats f32.  A JAX BVH built without the fused coefficient table (the
-CPU default) gets it computed from its leaf rows.  `to_numpy` turns a
+`to_torch` maps the JAX package's NamedTuples (SceneData, BVH,
+InstancedBVH, Instancing, Camera, RenderParams, TonemapParams,
+FrameState, GBuffer, ...) to the port's classes of the same name, field
+by field, converting every array with numpy: integer arrays (uint32
+words included) become int64 tensors, floats f32.  A JAX BVH or
+InstancedBVH built without the fused coefficient table (the CPU default)
+gets it computed from its leaf rows.  `to_numpy` turns a
 port tree back into numpy for comparisons.
 
 Both sides only meet here as numpy arrays: this module imports no JAX.
@@ -17,19 +18,21 @@ import torch
 
 from .ops.alias_table import AliasTable
 from .ops.bvh import BVH, HitRecord, bvh_to_device
+from .ops.bvh_fused import build_leaf_tables_np
+from .ops.bvh_instanced import InstancedBVH
 from .render.config import RenderParams, TonemapParams
 from .render.frame import FrameState
 from .render.gbuffer import GBuffer, GBufferView
 from .render.shade_state import State
 from .scene.camera import Camera
-from .scene.data import (EnvMap, Lights, Materials, SceneData,
+from .scene.data import (EnvMap, Instancing, Lights, Materials, SceneData,
                          SunSkyParams, TexStack)
 from .utils.transfer import to_device
 
 _CLASSES = {c.__name__: c for c in (
-    AliasTable, BVH, HitRecord, RenderParams, TonemapParams, FrameState,
-    GBuffer, GBufferView, State, Camera, EnvMap, Lights, Materials,
-    SceneData, SunSkyParams, TexStack)}
+    AliasTable, BVH, HitRecord, InstancedBVH, Instancing, RenderParams,
+    TonemapParams, FrameState, GBuffer, GBufferView, State, Camera, EnvMap,
+    Lights, Materials, SceneData, SunSkyParams, TexStack)}
 
 
 def to_torch(obj, device):
@@ -48,6 +51,10 @@ def to_torch(obj, device):
                  for k, v in obj._asdict().items()}, device)
         cls = _CLASSES[name]
         fields = obj._asdict()
+        if name == "InstancedBVH" and fields["leaf_cmat"] is None:
+            blocks = np.asarray(fields["leaf_blocks"], np.float32)
+            cm, an = build_leaf_tables_np(blocks, blocks.shape[1] // 12)
+            fields = dict(fields, leaf_cmat=cm, leaf_anchor=an)
         return cls(**{k: to_torch(fields.get(k), device)
                       for k in cls._fields})
     return to_device(np.asarray(obj), device)

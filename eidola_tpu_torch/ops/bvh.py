@@ -1,28 +1,38 @@
 """Stackless threaded BVH: host build + packet traversal (port of
-eidola_tpu/ops/bvh.py, the flattened opaque path).
+eidola_tpu/ops/bvh.py).
 
 - `build_bvh` is the JAX package's host build, on the port's own copies
   of its builders (binned SAH from `ops/bvh_build.py` or the C++ one in
   `native/`, preorder escape links, Morton-ordered leaves, octant walk
   tables from `ops/bvh_oct.py`) and always emits the f32 coefficient
-  table the fused drains read.
+  table the fused drains read.  `prim_ids`/`n_tris_global` build a
+  subset BVH (the opaque/alpha split) that reports external ids.
 - `_traverse` walks 128-ray packets over the (octant) walk table with
   torch ops: the slab test per packet, leaf events pushed into a
   per-packet queue of depth QUEUE, and a drain whenever any queue fills
-  or the walk ends.  The drain compacts the queued events and calls the
-  fused kernels of `ops/bvh_fused.py` on all of them in one launch.
-  Draining in one launch instead of CHUNK slices changes only which hit
-  wins an exact-t tie.
+  or the walk ends.  The drain compacts the queued events and intersects
+  all of them in one launch.  Draining in one launch instead of CHUNK
+  slices changes only which hit wins an exact-t tie.
+- With `inst` (an `ops/bvh_instanced.InstIndex`) leaf ids index a global
+  leaf table: each event reads its shared mesh leaf row and moves its
+  rays into the instance's object space (the direction stays
+  unnormalized, so t is the same in both spaces).
+- `MT` (EIDOLA_MT, read at each call) picks the drain: "fused" (default)
+  is the static coefficient table of `ops/bvh_fused.py`, whose kernels
+  also fold each sub-packet's events; "mxu" intersects the gathered leaf
+  rows with `ops/bvh_mxu.mt_mxu` and folds in torch, and resolves
+  occlusion with the division-free sign tests of `_mt_any_cols`.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..utils.transfer import to_device
-from . import bvh_fused
+from . import bvh_fused, bvh_mxu
 
 LEAF_SIZE_CUDA = 64
 LEAF_SIZE_CPU = 8
@@ -33,6 +43,9 @@ _BIG = 1e30
 # walk steps between host checks of the loop condition; the step itself
 # is gated on the device-side condition, so this changes no result
 _CHECK_EVERY = 16
+# leaf drain: "fused" (default) or "mxu"; read at each traversal
+MT = os.environ.get("EIDOLA_MT", "fused")
+MT_MODES = ("fused", "mxu")
 
 
 class BVH(NamedTuple):
@@ -81,9 +94,15 @@ def morton3d(p01: np.ndarray) -> np.ndarray:
     )
 
 
-def build_bvh_np(v0, v1, v2, leaf_size: int) -> dict:
-    """Host build (eidola_tpu/ops/bvh.py:201-343 without the subset and
-    SBVH options): returns the BVH fields as numpy arrays."""
+def build_bvh_np(v0, v1, v2, leaf_size: int, prim_ids=None,
+                 n_tris_global: int | None = None) -> dict:
+    """Host build (eidola_tpu/ops/bvh.py:201-343 without the SBVH
+    option): returns the BVH fields as numpy arrays.
+
+    prim_ids: optional (T,) external triangle ids for a subset build (the
+    opaque/alpha split): hit records report prim_ids[i] instead of the
+    input position i, and slot_of_tri is sized n_tris_global (default
+    max(prim_ids)+1) with -1 for ids this BVH does not own."""
     from ..native import build_bvh_native
     from .bvh_build import build_sah_topology, collect_frontier, \
         flatten_preorder
@@ -141,7 +160,18 @@ def build_bvh_np(v0, v1, v2, leaf_size: int) -> dict:
     blocks2 = blocks.reshape(n_leaves, leaf_size * 12)
     leaf_cmat, leaf_anchor = bvh_fused.build_leaf_tables_np(blocks2, leaf_size)
 
-    slot_of_tri = np.full(T, -1, np.int32)
+    if prim_ids is not None:
+        ids = np.asarray(prim_ids, np.int32)
+        if ids.shape[0] != T:
+            raise ValueError(f"prim_ids has {ids.shape[0]} ids for {T} "
+                             "triangles")
+        prim_id = np.where(prim_id >= 0, ids[np.maximum(prim_id, 0)],
+                           np.int32(-1))
+        n_slot = (int(n_tris_global) if n_tris_global is not None
+                  else int(ids.max()) + 1)
+    else:
+        n_slot = T
+    slot_of_tri = np.full(n_slot, -1, np.int32)
     occupied = prim_id >= 0
     slot_of_tri[prim_id[occupied]] = np.nonzero(occupied)[0].astype(np.int32)
     return dict(
@@ -162,12 +192,14 @@ def bvh_to_device(fields: dict, device) -> BVH:
     return BVH(**{k: to_device(fields.get(k), device) for k in BVH._fields})
 
 
-def build_bvh(v0, v1, v2, *, device, leaf_size: int | None = None) -> BVH:
+def build_bvh(v0, v1, v2, *, device, leaf_size: int | None = None,
+              prim_ids=None, n_tris_global: int | None = None) -> BVH:
     """Build on the host and move to `device`; the leaf size follows the
     device unless given."""
     if leaf_size is None:
         leaf_size = leaf_size_for(device)
-    return bvh_to_device(build_bvh_np(v0, v1, v2, leaf_size), device)
+    return bvh_to_device(build_bvh_np(v0, v1, v2, leaf_size, prim_ids,
+                                      n_tris_global), device)
 
 
 def _split_walk(tab):
@@ -177,9 +209,96 @@ def _split_walk(tab):
         tab[:, 6:8].contiguous().view(torch.int32).to(torch.int64)
 
 
-def _traverse(bvh: BVH, o, d, t_min, t_max, any_hit: bool, max_steps: int):
+def _mt_any_cols(row, n_tris: int, ox, oy, oz, dx, dy, dz, t_min, t_lim):
+    """Occlusion-only Moller-Trumbore over the gathered leaf rows (port of
+    eidola_tpu/ops/bvh.py:_mt_any_cols, which XLA computes outside any
+    Pallas kernel): sign tests with the barycentric and range tests
+    multiplied through by det (or det^2 > 0), so no division.  row:
+    (CE, n*12); rays (CE, 128).  Returns (CE, 128) bool: some triangle
+    blocks [t_min, t_lim]."""
+    hit_any = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
+    for k in range(n_tris):
+        col = lambda i: row[:, k * 12 + i:k * 12 + i + 1]
+        v0x, v0y, v0z = col(0), col(1), col(2)
+        e1x, e1y, e1z = col(3), col(4), col(5)
+        e2x, e2y, e2z = col(6), col(7), col(8)
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+        u_num = tvx * px + tvy * py + tvz * pz
+        qx = tvy * e1z - tvz * e1y
+        qy = tvz * e1x - tvx * e1z
+        qz = tvx * e1y - tvy * e1x
+        v_num = dx * qx + dy * qy + dz * qz
+        t_num = e2x * qx + e2y * qy + e2z * qz
+        det2 = det * det
+        ud, vd, td = u_num * det, v_num * det, t_num * det
+        hit_any |= ((torch.abs(det) > 1e-12) & (ud >= 0.0) & (vd >= 0.0)
+                    & (ud + vd <= det2) & (td > t_min * det2)
+                    & (td < t_lim * det2))
+    return hit_any
+
+
+def _shifted(a, sh: int, fill):
+    """a shifted down by sh events (rows), `fill` in the first sh rows."""
+    return torch.cat([a.new_full((sh,) + tuple(a.shape[1:]), fill),
+                      a[:-sh]])
+
+
+def _segment_scan(sp, vals, combine):
+    """Segmented inclusive prefix scan over consecutive events of one
+    sub-packet, as the doubling passes of eidola_tpu/ops/bvh.py:934-946:
+    a run holds at most QUEUE events, so passes sh = 1, 2, ..., QUEUE/2
+    are exact.  `combine(same, shifted_vals, vals)` merges each row with
+    the row sh above it where both belong to one sub-packet."""
+    ce = sp.shape[0]
+    sh = 1
+    while sh < min(ce, QUEUE):
+        same = torch.cat([sp.new_zeros(sh, dtype=torch.bool),
+                          sp[sh:] == sp[:-sh]])[:, None]
+        vals = combine(same, sh, vals)
+        sh *= 2
+    return vals
+
+
+def _fold_min(same, sh, vals):
+    """Prefix-min step: take the earlier row only where its t is strictly
+    smaller, so an exact-t tie keeps the later event."""
+    t, slot, u, v = vals
+    st = _shifted(t, sh, _BIG)
+    better = same & (st < t)
+    return (torch.where(better, st, t),
+            torch.where(better, _shifted(slot, sh, 0), slot),
+            torch.where(better, _shifted(u, sh, 0.0), u),
+            torch.where(better, _shifted(v, sh, 0.0), v))
+
+
+def _fold_or(same, sh, hit):
+    return hit | (same & _shifted(hit, sh, False))
+
+
+def _to_object_space(xf, ox, oy, oz, dx, dy, dz):
+    """Rays -> instance object space by the (CE, 12) world->object rows
+    (eidola_tpu/ops/bvh.py:798-811); the direction stays unnormalized."""
+    c = lambda i: xf[:, i:i + 1]
+    return (c(0) * ox + c(1) * oy + c(2) * oz + c(3),
+            c(4) * ox + c(5) * oy + c(6) * oz + c(7),
+            c(8) * ox + c(9) * oy + c(10) * oz + c(11),
+            c(0) * dx + c(1) * dy + c(2) * dz,
+            c(4) * dx + c(5) * dy + c(6) * dz,
+            c(8) * dx + c(9) * dy + c(10) * dz)
+
+
+def _traverse(bvh, o, d, t_min, t_max, any_hit: bool, max_steps: int,
+              inst=None):
     """Packet traversal core.  o, d: (R, 3); t_min/t_max: (R,) or scalars.
+    `bvh` is a BVH, or an InstancedBVH with `inst` its InstIndex.
     Returns (HitRecord, stats dict)."""
+    if MT not in MT_MODES:
+        raise ValueError(f"EIDOLA_MT={MT!r}: the port has {MT_MODES}")
+    mxu = MT == "mxu"
     dev = o.device
     R = o.shape[0]
     n_pkt = -(-R // PACKET)
@@ -271,11 +390,13 @@ def _traverse(bvh: BVH, o, d, t_min, t_max, any_hit: bool, max_steps: int):
             s = torch.arange(total, device=dev)
             sp = torch.searchsorted(offsets, s, right=True) - 1
             leaf = queue[sp, s - offsets[sp]]
-            valid = torch.ones(total, dtype=torch.int32, device=dev)
+            dma_row = leaf if inst is None else inst.leaf_mesh_row[leaf]
             g = lambda a: a[sp]
-            anchor = bvh.leaf_anchor[leaf]
-            rays = (g(ox), g(oy), g(oz), g(dx), g(dy), g(dz), g(t_min))
-            gtb = g(t_best)
+            rays = (g(ox), g(oy), g(oz), g(dx), g(dy), g(dz))
+            if inst is not None:
+                rays = _to_object_space(inst.inst_inv[inst.leaf_inst[leaf]],
+                                        *rays)
+            gtmin, gtb = g(t_min), g(t_best)
             nxt_sp = torch.cat([sp[1:], sp.new_full((1,), -1)])
             # run-end scatter: the last event of each sub-packet's run holds
             # its fold; every other row goes to a discarded extra row
@@ -287,14 +408,30 @@ def _traverse(bvh: BVH, o, d, t_min, t_max, any_hit: bool, max_steps: int):
                 return out[:n_pkt]
 
             if any_hit:
-                hit_e = bvh_fused.mt_any_fused(
-                    bvh.leaf_cmat, anchor, leaf, sp, valid, *rays, gtb, n) > 0
+                if mxu:
+                    hit_e = _segment_scan(sp, _mt_any_cols(
+                        bvh.leaf_blocks[dma_row], n, *rays, gtmin, gtb),
+                        _fold_or)
+                else:
+                    valid = torch.ones(total, dtype=torch.int32, device=dev)
+                    hit_e = bvh_fused.mt_any_fused(
+                        bvh.leaf_cmat, bvh.leaf_anchor[dma_row], dma_row, sp,
+                        valid, *rays, gtmin, gtb, n) > 0
                 t_best = scat(t_best, torch.where(hit_e, -_BIG, gtb))
                 tri_best = scat(tri_best,
                                 torch.where(hit_e, 0, g(tri_best)))
             else:
-                t_e, slot_e, u_e, v_e = bvh_fused.mt_fused(
-                    bvh.leaf_cmat, anchor, leaf, leaf, sp, valid, *rays, gtb, n)
+                if mxu:
+                    t_e, k_e, u_e, v_e = bvh_mxu.mt_mxu(
+                        bvh.leaf_blocks[dma_row], n, *rays, gtmin, gtb)
+                    slot_e = leaf[:, None].to(torch.int32) * n + k_e
+                    t_e, slot_e, u_e, v_e = _segment_scan(
+                        sp, (t_e, slot_e, u_e, v_e), _fold_min)
+                else:
+                    valid = torch.ones(total, dtype=torch.int32, device=dev)
+                    t_e, slot_e, u_e, v_e = bvh_fused.mt_fused(
+                        bvh.leaf_cmat, bvh.leaf_anchor[dma_row], dma_row,
+                        leaf, sp, valid, *rays, gtmin, gtb, n)
                 improved = t_e < gtb
                 t_best = scat(t_best, torch.where(improved, t_e, gtb))
                 tri_best = scat(tri_best,
@@ -325,7 +462,15 @@ def _traverse(bvh: BVH, o, d, t_min, t_max, any_hit: bool, max_steps: int):
         # blocker identity is never used: tri 0 reads "occluded"
         tri = torch.where(tri_slot >= 0, 0, -1)
         return HitRecord(tri=tri, t=t, u=u, v=v), stats
-    tri = torch.where(tri_slot >= 0, bvh.prim_id[tri_slot.clamp(min=0)], -1)
+    slot = tri_slot.clamp(min=0)
+    if inst is None:
+        tri = torch.where(tri_slot >= 0, bvh.prim_id[slot], -1)
+    else:
+        # global id = the instance's tri base + the mesh-local prim id
+        leaf_g, k = slot // n, slot % n
+        p = inst.mesh_prim[inst.leaf_mesh_row[leaf_g] * n + k]
+        base = inst.inst_tri_base[inst.leaf_inst[leaf_g]]
+        tri = torch.where((tri_slot >= 0) & (p >= 0), p + base, -1)
     t = torch.where(tri >= 0, torch.abs(t), _BIG)
     return HitRecord(tri=tri, t=t, u=u, v=v), stats
 

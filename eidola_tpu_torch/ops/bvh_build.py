@@ -178,9 +178,11 @@ def collect_frontier(walk: np.ndarray, k_max: int) -> np.ndarray:
     greedy cut of the flattened preorder walk, always expanding the
     largest-surface-area node (its box is replaced by its two children's).
 
-    Used as a RAY PRE-CULL table (render/tracer.py alpha cull): a ray
-    segment missing every frontier box provably misses everything in the
-    tree, because the frontier is a full cover.  Returns (k_max, 6)
+    A ray pre-cull table (the JAX package's opt-in alpha cull; the port
+    keeps `cull_boxes` so its BVHs equal the JAX package's, and no
+    traversal of the port reads them): a ray segment missing every
+    frontier box provably misses everything in the tree, because the
+    frontier is a full cover.  Returns (k_max, 6)
     [bmin, bmax]; unused rows are degenerate (min > max) so a slab test
     can never pass them.
     """

@@ -13,8 +13,10 @@ consecutive rays should be spatially coherent.
    Dead rays (t_max < t_min) cluster into packets that retire at once.
 
 `TRAV` selects the traversal every door uses, from EIDOLA_TRAV as in the
-JAX package: "xla" (default) is the torch walk of ops/bvh.py with the
-fused drain kernels, "pallas" the one-kernel walk of ops/bvh_walk.py.
+JAX package: "xla" (default) is the torch walk of ops/bvh.py with its
+drain kernels, "pallas" the one-kernel walk of ops/bvh_walk.py.  An
+instanced BVH (ops/bvh_instanced.py) always takes the torch walk, as in
+the JAX package (packets.py:72-79): the walk kernel reads flat leaf rows.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import os
 import torch
 
 from . import bvh as _bvh
+from . import bvh_instanced as _inst
 from . import bvh_walk as _walk
 from .bvh import BVH, HitRecord
 
@@ -34,14 +37,27 @@ TRAV = os.environ.get("EIDOLA_TRAV", "xla")
 KEY = os.environ.get("EIDOLA_KEY", "o15d6")
 
 
-def closest_hit(bvh: BVH, o, d, t_min, t_max, max_steps: int = 100_000):
-    if TRAV == "pallas":
+def _is_inst(bvh) -> bool:
+    return hasattr(bvh, "leaf_mesh_row")
+
+
+def _use_pallas(bvh) -> bool:
+    return TRAV == "pallas" and not _is_inst(bvh)
+
+
+def closest_hit(bvh, o, d, t_min, t_max, max_steps: int = 100_000):
+    if _is_inst(bvh):
+        return _inst.closest_hit_instanced(bvh, o, d, t_min, t_max,
+                                           max_steps)
+    if _use_pallas(bvh):
         return _walk.closest_hit_walk(bvh, o, d, t_min, t_max, max_steps)
     return _bvh.closest_hit(bvh, o, d, t_min, t_max, max_steps=max_steps)
 
 
-def any_hit(bvh: BVH, o, d, t_min, t_max, max_steps: int = 100_000):
-    if TRAV == "pallas":
+def any_hit(bvh, o, d, t_min, t_max, max_steps: int = 100_000):
+    if _is_inst(bvh):
+        return _inst.any_hit_instanced(bvh, o, d, t_min, t_max, max_steps)
+    if _use_pallas(bvh):
         return _walk.any_hit_walk(bvh, o, d, t_min, t_max, max_steps)
     return _bvh.any_hit(bvh, o, d, t_min, t_max, max_steps=max_steps)
 

@@ -95,8 +95,6 @@ def _unsupported(cfg: RenderConfig):
                                                      RESTIR_SPATIOTEMPORAL):
         raise NotImplementedError(
             "spatial ReSTIR reuse is ported with ROADMAP A10")
-    if cfg.alpha_geometry:
-        raise NotImplementedError("alpha geometry is ported with ROADMAP A9")
 
 
 def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,

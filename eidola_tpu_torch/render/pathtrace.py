@@ -14,7 +14,7 @@ from ..ops.alias_table import sample_alias
 from ..ops.math import cross, dot3, length, normalize
 from ..scene import hdr as ehdr
 from ..scene import sunsky as esky
-from ..scene.data import LIGHT_DIRECTIONAL, LIGHT_SPOT, SceneData
+from ..scene.data import LIGHT_DIRECTIONAL, LIGHT_SPOT, SceneData, shade_row
 from .config import RenderConfig, RenderParams
 
 _FAR = 1e7
@@ -183,9 +183,13 @@ def light_pdf_for_bsdf_dir(cfg: RenderConfig, scene: SceneData,
     trig_p = scene.lights.trig_samp_prob
     escaped = hit_tri < 0
     pdf_env = env_pdf_dir(cfg, scene, d) * env_p
-    tid = torch.clamp(hit_tri, min=0)
+    tid, inst_id = shade_row(scene, torch.clamp(hit_tri, min=0))
     pmf = scene.tri_light_pmf[tid]
     area = scene.tri_light_area[tid]
+    if inst_id is not None:
+        # instanced pools hold the unnormalized mesh weight and object area
+        pmf = pmf * scene.inst.pmf_scale[inst_id]
+        area = area * scene.inst.area_scale[inst_id]
     pdf_trig = (pmf * hit_dist * hit_dist
                 / torch.clamp(area * torch.abs(hit_cos), min=1e-9)
                 * (1.0 - env_p) * trig_p)

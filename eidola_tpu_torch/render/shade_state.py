@@ -1,5 +1,7 @@
-"""Hit record -> shading state (port of eidola_tpu/render/shade_state.py,
-flattened scenes; ref shaders/shade_state.glsl:63-221)."""
+"""Hit record -> shading state (port of eidola_tpu/render/shade_state.py;
+ref shaders/shade_state.glsl:63-221).  On an instanced scene a hit's
+global triangle id resolves to its shared pool row (`shade_row`), and the
+pool's object-space normals and tangents rotate into world space."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -8,7 +10,7 @@ import torch
 
 from ..ops import octahedral as octa
 from ..ops.math import cross, dot3, normalize
-from ..scene.data import SceneData
+from ..scene.data import SceneData, rot_apply, shade_row
 from ..scene.textures import sample_bilinear
 from .bsdf import BsdfParams
 
@@ -42,18 +44,25 @@ def _bary_mix(attr3, u, v):
 def get_state(scene: SceneData, o, d, tri, t, u, v, cone_angle=None) -> State:
     """Shading state per lane from a closest-hit record; lanes with
     tri < 0 get a zeroed state with valid=False."""
-    if scene.inst is not None:
-        raise NotImplementedError("instanced scenes come with ROADMAP A10")
     valid = tri >= 0
-    tid = torch.clamp(tri, min=0)
+    tid, inst_id = shade_row(scene, torch.clamp(tri, min=0))
     fp = None
     if cone_angle is not None:
         fp = t * cone_angle * scene.tri_uv_density[tid]
+        if inst_id is not None:
+            fp = fp * scene.inst.uvd_scale[inst_id]
 
     pos = o + d * t[..., None]
     nrm = _bary_mix(octa.decode_unit_u32(scene.tri_nrm[tid]), u, v)
     uv_interp = _bary_mix(scene.tri_uv[tid], u, v)
     geo = octa.decode_unit_u32(scene.tri_gn[tid])
+    if inst_id is not None:
+        # object-space pool directions -> world; a mirrored instance
+        # (det < 0) flips the geometric normal, not the vertex normals
+        nr = scene.inst.nrm_rot[inst_id]
+        nrm = rot_apply(nr, nrm)
+        geo = normalize(rot_apply(nr, geo)
+                        * scene.inst.det_sign[inst_id][..., None])
     nrm = normalize(nrm)
     flip = dot3(geo, d) > 0.0
     geo_n = torch.where(flip[..., None], -geo, geo)
@@ -79,8 +88,11 @@ def get_state(scene: SceneData, o, d, tri, t, u, v, cone_angle=None) -> State:
     emission = m.emissive[mat_id] * em_tex[..., :3]
 
     has_nm = m.normal_tex[mat_id] >= 0
-    tangent = normalize(_bary_mix(
-        octa.decode_unit_u32(scene.tri_tangent[tid]), u, v))
+    tangent = _bary_mix(octa.decode_unit_u32(scene.tri_tangent[tid]), u, v)
+    if inst_id is not None:
+        # the world-space cross(n, t) below carries a mirror's sign itself
+        tangent = rot_apply(scene.inst.rot[inst_id], tangent)
+    tangent = normalize(tangent)
     hand = _bary_mix(scene.tri_hand[tid][..., None], u, v)[..., 0]
     tangent = normalize(tangent - shade_n * dot3(tangent, shade_n)[..., None])
     bitan = cross(shade_n, tangent) * torch.sign(hand)[..., None]

@@ -1,16 +1,25 @@
 """Wavefront unidirectional path tracer: NEE + MIS power heuristic +
-Russian roulette (port of eidola_tpu/render/tracer.py on its opaque
-branch, alpha_geometry=False; ref shaders/indirect_stage.comp:129-226).
+Russian roulette, and the alpha HitTest (port of
+eidola_tpu/render/tracer.py; ref shaders/indirect_stage.comp:129-226,
+traceray_rq.glsl:32-185).
 
 `trace_closest` / `trace_occlusion` are the ray front doors: image-tile
 packets for coherent (H, W, 3) raster fields, sorted wavefronts for
-everything else.  `trace_radiance` is the estimator core the GI stage
-drives from G-buffer surfaces; its bounce loop is the JAX package's
-scanned body as a Python loop.  The alpha HitTest march and the
-opaque/alpha BVH split stay ROADMAP A9.
+everything else.  Under `cfg.alpha_geometry` a hit on an alpha-tested
+material (MASK below its cutoff, BLEND stochastically) is passed through
+and the ray re-traced from just past it, up to `cfg.alpha_hops` times;
+on a split scene (`scene.bvh_alpha`) the opaque bulk is traversed once
+and the hops run in the alpha BVH only.  The hop loop runs on a
+compacted queue of the rays that still need a test (`_alpha_march`, the
+default on the card) or in lockstep over all rays (the default on the
+CPU, as in the JAX package); on MASK materials both give the same hits.
+`trace_radiance` is the estimator core the GI stage drives from
+G-buffer surfaces; its bounce loop is the JAX package's scanned body as
+a Python loop.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -20,7 +29,8 @@ from ..ops.math import (dot3, make_frame, offset_ray, power_heuristic,
                         to_local, to_world)
 from ..ops.packets import (any_hit_img, any_hit_sorted, closest_hit_img,
                            closest_hit_sorted, make_ray_order)
-from ..scene.data import SceneData
+from ..scene.data import ALPHA_BLEND, ALPHA_MASK, SceneData, shade_row
+from ..scene.textures import sample_bilinear
 from .bsdf import eval_bsdf, pdf_bsdf, sample_bsdf
 from .config import RenderConfig, RenderParams
 from .pathtrace import (env_pdf_dir, env_radiance, env_selection_prob,
@@ -31,40 +41,223 @@ _TMIN = 1e-4
 _TMAX = 1e8
 
 
-def _check(cfg: RenderConfig, scene: SceneData):
-    if cfg.alpha_geometry or scene.bvh_alpha is not None:
-        raise NotImplementedError(
-            "alpha-tested tracing is ported with ROADMAP A9")
+def _surface_opacity(scene: SceneData, tri, u, v):
+    """Opacity at a hit: base-colour alpha x base texture alpha (the part
+    of GetMaterials the alpha test needs, ref traceray_rq.glsl:58-80)."""
+    t, _ = shade_row(scene, torch.clamp(tri, min=0))
+    uvs = scene.tri_uv[t]
+    w0 = (1.0 - u - v)[..., None]
+    uv = (uvs[..., 0, :] * w0 + uvs[..., 1, :] * u[..., None]
+          + uvs[..., 2, :] * v[..., None])
+    mat = scene.tri_mat[t]
+    base_a = scene.materials.base_color[mat][..., 3]
+    tex_a = sample_bilinear(scene.textures, scene.materials.base_tex[mat],
+                            uv)[..., 3]
+    return base_a * tex_a
+
+
+def _alpha_passthrough(scene: SceneData, rec, rng_state):
+    """Which hits the alpha test rejects (the ray continues past them):
+    MASK -> opacity < cutoff; BLEND -> rand >= opacity (ref
+    traceray_rq.glsl:87-101).  Consumes one rng draw per lane."""
+    mat = scene.tri_mat[shade_row(scene, torch.clamp(rec.tri, min=0))[0]]
+    am = scene.materials.alpha_mode[mat]
+    opac = _surface_opacity(scene, rec.tri, rec.u, rec.v)
+    rng_state, uu = erng.rand(rng_state)
+    cutoff = scene.materials.alpha_cutoff[mat]
+    passthrough = (rec.tri >= 0) & (((am == ALPHA_MASK) & (opac < cutoff))
+                                    | ((am == ALPHA_BLEND) & (uu >= opac)))
+    return rng_state, passthrough
+
+
+def _merge_closest(a, b):
+    """The nearer of two hit records (a miss has t = 1e30)."""
+    take_b = (b.tri >= 0) & ((a.tri < 0) | (b.t < a.t))
+    return type(a)(*[torch.where(take_b, y, x) for x, y in zip(a, b)])
+
+
+def _march_caps(R: int) -> list[int]:
+    """Lap capacities of the queue march (tracer.py:138-187): about
+    R/EIDOLA_MARCH_DIV rounded to packets, then a quarter of that while
+    the pending count falls, down to EIDOLA_MARCH_MIN."""
+    div = int(os.environ.get("EIDOLA_MARCH_DIV", "16"))
+    frac = -(-R // div)
+    caps = [int(min(R, max(32768, -(-frac // 128) * 128)))]
+    cmin = min(caps[0], max(2048, int(os.environ.get("EIDOLA_MARCH_MIN",
+                                                     "8192"))))
+    while caps[-1] > cmin and len(caps) < 3:
+        caps.append(max(-(-(caps[-1] // 4) // 128) * 128, cmin))
+    return caps
+
+
+def _alpha_march(scene: SceneData, hop_bvh, o, d, a_tmax, rec0, rng_state,
+                 budget: int, max_steps: int, occl: bool):
+    """The HitTest hop loop on a compacted queue (tracer.py:95-257, one
+    band): each lap takes up to `cap` rays whose record is an untested
+    alpha hit (`torch.nonzero`, in index order), runs the alpha test and
+    the re-trace at that width, and scatters the results back.  Per ray
+    the same tests and re-traces as the lockstep loop; only the BLEND rng
+    stream differs (one draw per queued test, not per lane per hop).
+    occl=True counts `budget` tests (a solid hit occludes); occl=False
+    counts `budget` re-traces, whose last hit may stand untested.
+    Returns (rng_state, rec, occluded) shaped like rec0."""
+    shape = tuple(rec0.t.shape)
+    R = rec0.t.numel()
+    dev = rec0.t.device
+    o_f, d_f = o.reshape(R, 3), d.reshape(R, 3)
+    tmax_f = torch.broadcast_to(torch.as_tensor(a_tmax, dtype=torch.float32,
+                                                device=dev), shape).reshape(R)
+    rec = [x.reshape(R).clone() for x in rec0]
+    rng_f = rng_state.reshape(R).clone()
+    pending = rec[0] >= 0
+    if not occl and budget <= 0:
+        pending = torch.zeros_like(pending)
+    bleft = torch.where(pending, budget, 0)
+    occluded = torch.zeros(R, dtype=torch.bool, device=dev)
+
+    caps = _march_caps(R)
+    for k, cap in enumerate(caps):
+        nxt = caps[k + 1] if k + 1 < len(caps) else 0
+        while int(pending.sum()) > nxt:
+            sel = torch.nonzero(pending)[:cap, 0]
+            rec_sel = type(rec0)(*[x[sel] for x in rec])
+            rng_new, pt = _alpha_passthrough(scene, rec_sel, rng_f[sel])
+            b_sel = bleft[sel]
+            if occl:
+                b_sel = b_sel - 1                  # a test consumed
+                occ_new = ~pt                      # a solid hit occludes
+                go = pt & (b_sel > 0)
+            else:
+                occ_new = torch.zeros_like(pt)
+                go = pt                            # pending => b_sel > 0
+                b_sel = b_sel - go.long()          # a re-trace consumed
+            tn = torch.where(go, rec_sel.t * (1.0 + 1e-4) + 1e-5, 1.0)
+            tx = torch.where(go, tmax_f[sel], -1.0)
+            rec2 = closest_hit_sorted(hop_bvh, o_f[sel], d_f[sel], tn, tx,
+                                      max_steps=max_steps)
+            for x, a, b in zip(rec, rec_sel, rec2):
+                x[sel] = torch.where(go, b, a)
+            rng_f[sel] = rng_new
+            pending[sel] = go & (rec2.tri >= 0) & (occl | (b_sel > 0))
+            occluded[sel] |= occ_new
+            bleft[sel] = b_sel
+    rec = type(rec0)(*[x.reshape(shape) for x in rec])
+    return rng_f.reshape(shape), rec, occluded.reshape(shape)
+
+
+def _march_mode(device) -> str:
+    """EIDOLA_ALPHA_MARCH: auto (queue on the card, lockstep on the CPU,
+    as the JAX package picks by backend) | queue | lockstep."""
+    mode = os.environ.get("EIDOLA_ALPHA_MARCH", "auto")
+    if mode == "auto":
+        return "queue" if torch.device(device).type != "cpu" else "lockstep"
+    return mode
 
 
 def trace_closest(cfg: RenderConfig, scene: SceneData, o, d, t_min, t_max,
                   rng_state, coherent: bool = False, order=None):
-    """Closest hit: image tiles for coherent (H, W, 3) fields, else a
-    sorted wavefront (`order` from make_ray_order skips the sort).
-    Returns (rng_state, HitRecord)."""
-    _check(cfg, scene)
-    if coherent and o.dim() == 3:
-        rec = closest_hit_img(scene.bvh, o, d, t_min, t_max,
-                              max_steps=cfg.traversal_max_steps)
+    """Closest hit with the HitTest alpha loop (ref traceray_rq.glsl
+    ClosestHit): image tiles for coherent (H, W, 3) fields, else a sorted
+    wavefront (`order` from make_ray_order skips the sort).  Returns
+    (rng_state, HitRecord)."""
+    def closest(bvh, tn, tx):
+        if coherent and o.dim() == 3:
+            return closest_hit_img(bvh, o, d, tn, tx,
+                                   max_steps=cfg.traversal_max_steps)
+        return closest_hit_sorted(bvh, o, d, tn, tx,
+                                  max_steps=cfg.traversal_max_steps,
+                                  order=order)
+
+    rec = closest(scene.bvh, t_min, t_max)
+    if not cfg.alpha_geometry:
+        if scene.bvh_alpha is not None:
+            # alpha geometry counts as opaque with the HitTest loop off
+            rec = _merge_closest(rec, closest(scene.bvh_alpha, t_min, t_max))
+        return rng_state, rec
+    split = scene.bvh_alpha is not None
+    hop_bvh = scene.bvh_alpha if split else scene.bvh
+    if split:
+        # the alpha closest hit, bounded by the opaque one
+        a_tmax = torch.minimum(torch.broadcast_to(torch.as_tensor(
+            t_max, dtype=torch.float32, device=rec.t.device), rec.t.shape),
+            rec.t)
+        rec_a = closest(hop_bvh, t_min, a_tmax)
     else:
-        rec = closest_hit_sorted(scene.bvh, o, d, t_min, t_max,
-                                 max_steps=cfg.traversal_max_steps,
-                                 order=order)
-    return rng_state, rec
+        a_tmax = t_max
+        rec_a = rec
+    if _march_mode(o.device) == "queue":
+        rng_state, rec_a, _ = _alpha_march(
+            scene, hop_bvh, o, d, a_tmax, rec_a, rng_state,
+            budget=cfg.alpha_hops, max_steps=cfg.traversal_max_steps,
+            occl=False)
+    else:
+        for _ in range(cfg.alpha_hops):
+            rng_state, passthrough = _alpha_passthrough(scene, rec_a,
+                                                        rng_state)
+            rec2 = closest_hit_sorted(
+                hop_bvh, o, d,
+                torch.where(passthrough, rec_a.t * (1.0 + 1e-4) + 1e-5,
+                            t_min),
+                torch.where(passthrough, a_tmax, -1.0),
+                max_steps=cfg.traversal_max_steps, order=order)
+            rec_a = type(rec_a)(*[torch.where(passthrough, b, a)
+                                  for a, b in zip(rec_a, rec2)])
+    if split:
+        rec_a = _merge_closest(rec, rec_a)
+    return rng_state, rec_a
 
 
 def trace_occlusion(cfg: RenderConfig, scene: SceneData, o, d, t_min, t_max,
                     rng_state, order=None, coherent: bool = False):
-    """Occlusion, with the same packet choice.  Returns (rng_state,
-    occluded bool)."""
-    _check(cfg, scene)
-    if coherent and o.dim() == 3:
-        occ = any_hit_img(scene.bvh, o, d, t_min, t_max,
-                          max_steps=cfg.traversal_max_steps)
+    """Occlusion with the alpha test (ref traceray_rq.glsl:153-185
+    AnyHit): alpha-rejected hits do not occlude and the ray marches past
+    them.  A split scene pays one any-hit over the opaque bulk, then the
+    march through the alpha BVH only.  Returns (rng_state, occluded)."""
+    def anyhit(bvh, tx):
+        if coherent and o.dim() == 3:
+            return any_hit_img(bvh, o, d, t_min, tx,
+                               max_steps=cfg.traversal_max_steps)
+        return any_hit_sorted(bvh, o, d, t_min, tx,
+                              max_steps=cfg.traversal_max_steps, order=order)
+
+    if not cfg.alpha_geometry:
+        occ = anyhit(scene.bvh, t_max)
+        if scene.bvh_alpha is not None:
+            occ = occ | anyhit(scene.bvh_alpha, t_max)
+        return rng_state, occ
+    f32 = dict(dtype=torch.float32, device=o.device)
+    shape = tuple(t_max.shape) if torch.is_tensor(t_max) else \
+        tuple(o.shape[:-1])
+    if scene.bvh_alpha is not None:
+        occluded = anyhit(scene.bvh, t_max)
+        hop_bvh = scene.bvh_alpha
     else:
-        occ = any_hit_sorted(scene.bvh, o, d, t_min, t_max,
-                             max_steps=cfg.traversal_max_steps, order=order)
-    return rng_state, occ
+        occluded = torch.zeros(shape, dtype=torch.bool, device=o.device)
+        hop_bvh = scene.bvh
+    hops = cfg.alpha_hops + 1
+    cur_tmin = torch.broadcast_to(torch.as_tensor(t_min, **f32), shape)
+    cur_tmax = torch.where(occluded, -1.0, torch.broadcast_to(
+        torch.as_tensor(t_max, **f32), shape))
+    if _march_mode(o.device) == "queue":
+        # one full-width closest hit (every unoccluded ray must consult
+        # the alpha set), then the test/re-trace march on the queue
+        rec0 = closest_hit_sorted(hop_bvh, o, d, cur_tmin, cur_tmax,
+                                  max_steps=cfg.traversal_max_steps,
+                                  order=order)
+        rng_state, _, occ_a = _alpha_march(
+            scene, hop_bvh, o, d, cur_tmax, rec0, rng_state, budget=hops,
+            max_steps=cfg.traversal_max_steps, occl=True)
+        return rng_state, occluded | occ_a
+    for _ in range(hops):
+        rec = closest_hit_sorted(hop_bvh, o, d, cur_tmin, cur_tmax,
+                                 max_steps=cfg.traversal_max_steps,
+                                 order=order)
+        rng_state, passthrough = _alpha_passthrough(scene, rec, rng_state)
+        occluded = occluded | ((rec.tri >= 0) & ~passthrough)
+        cur_tmin = torch.where(passthrough, rec.t * (1.0 + 1e-4) + 1e-5,
+                               cur_tmin)
+        cur_tmax = torch.where(passthrough & ~occluded, cur_tmax, -1.0)
+    return rng_state, occluded
 
 
 class PathVertex(NamedTuple):
@@ -179,8 +372,9 @@ def trace_radiance(cfg: RenderConfig, scene: SceneData, params: RenderParams,
                 else ones
         elif cfg.use_nee:
             # NEE-only: count emitter hits only for lights NEE can't find
-            not_nee_light = torch.where(
-                scene.tri_light_pmf[torch.clamp(tri, min=0)] > 0.0, 0.0, 1.0)
+            row, _ = shade_row(scene, torch.clamp(tri, min=0))
+            not_nee_light = torch.where(scene.tri_light_pmf[row] > 0.0,
+                                        0.0, 1.0)
             w_em = not_nee_light if depth_gt_nee else ones
         else:
             w_em = ones

@@ -1,9 +1,14 @@
 """Device-side scene representation + host->device upload (port of
-eidola_tpu/scene/data.py:upload_scene, opaque non-instanced soups).
+eidola_tpu/scene/data.py: `upload_scene` for world-space soups,
+`upload_scene_instanced` for shared object-space meshes under instance
+transforms).
 
 Everything is built on the host in numpy, exactly as the JAX package
 builds it, then moved to the device once.  Integer arrays become int64
-tensors (uint32 words keep their value), float arrays f32.
+tensors (uint32 words keep their value), float arrays f32.  A scene that
+mixes opaque and alpha-tested (MASK/BLEND) materials gets two BVHs, the
+opaque bulk in `bvh` and the alpha-tested rest in `bvh_alpha`, both
+reporting triangle ids in one numbering.
 """
 from __future__ import annotations
 
@@ -14,10 +19,13 @@ import torch
 
 from ..ops import octahedral as octa
 from ..ops.alias_table import AliasTable, make_alias_table
-from ..ops.bvh import BVH, build_bvh_np, bvh_to_device, leaf_size_for
+from ..ops.bvh import BVH, build_bvh, leaf_size_for
+from ..ops.bvh_instanced import affine_3x4, build_instanced_bvh
 from ..utils.transfer import to_device
 
 ALPHA_OPAQUE = 0
+ALPHA_MASK = 1
+ALPHA_BLEND = 2
 
 LIGHT_DIRECTIONAL = 1
 LIGHT_SPOT = 2
@@ -92,8 +100,47 @@ class SunSkyParams(NamedTuple):
     ground_irradiance: torch.Tensor
 
 
+class Instancing(NamedTuple):
+    """Per-instance indirection for shading an instanced scene: the tri_*
+    arrays of SceneData are then mesh-local pools shared by all instances
+    of a mesh, a hit's global triangle id resolves to (instance, pool row)
+    through tri_base, and normals and tangents stored in object space
+    rotate into world space when gathered."""
+    tri_base: torch.Tensor    # (I,) int64 global tri base per instance (sorted)
+    attr_base: torch.Tensor   # (I,) int64 attr-pool row base of the mesh
+    rot: torch.Tensor         # (I, 9) f32 object->world linear part (row-major)
+    nrm_rot: torch.Tensor     # (I, 9) f32 its inverse transpose
+    # sign(det): a mirrored instance flips the winding, so the geometric
+    # normal flips relative to the normal-matrix image of the object one
+    det_sign: torch.Tensor    # (I,) f32
+    area_scale: torch.Tensor  # (I,) f32 world/object area, |det|^(2/3)
+    uvd_scale: torch.Tensor   # (I,) f32 1/sqrt(area_scale)
+    pmf_scale: torch.Tensor   # (I,) f32 pool emissive weight -> world pmf
+
+
+def shade_row(scene: "SceneData", tid):
+    """A global triangle id -> (attribute row, instance id); (tid, None)
+    on a flattened scene."""
+    if scene.inst is None:
+        return tid, None
+    i = torch.clamp(torch.searchsorted(scene.inst.tri_base, tid,
+                                       right=True) - 1, min=0)
+    return scene.inst.attr_base[i] + (tid - scene.inst.tri_base[i]), i
+
+
+def rot_apply(m9, x):
+    """Gathered (..., 9) row-major 3x3 matrices applied to (..., 3)."""
+    return torch.stack([
+        m9[..., 0] * x[..., 0] + m9[..., 1] * x[..., 1] + m9[..., 2] * x[..., 2],
+        m9[..., 3] * x[..., 0] + m9[..., 4] * x[..., 1] + m9[..., 5] * x[..., 2],
+        m9[..., 6] * x[..., 0] + m9[..., 7] * x[..., 1] + m9[..., 8] * x[..., 2],
+    ], dim=-1)
+
+
 class SceneData(NamedTuple):
-    """Everything a frame needs (field-for-field the JAX SceneData)."""
+    """Everything a frame needs (field-for-field the JAX SceneData).  On
+    an instanced scene `bvh` is an InstancedBVH; `bvh_alpha` holds the
+    alpha-tested triangles of a split scene (a flat BVH by default)."""
     bvh: BVH
     tri_gn: torch.Tensor
     tri_nrm: torch.Tensor
@@ -110,7 +157,7 @@ class SceneData(NamedTuple):
     lights: Lights
     env: Optional[EnvMap]
     sunsky: SunSkyParams
-    inst: Optional[object] = None
+    inst: Optional[Instancing] = None
     bvh_alpha: Optional[BVH] = None
 
 
@@ -336,20 +383,16 @@ def upload_scene(v0, v1, v2, *, device, normals=None, uvs=None,
                  tangents=None, colors=None, mat_ids=None, materials=None,
                  textures=None, punctual=None, sunsky=None,
                  leaf_size: int | None = None) -> SceneData:
-    """Flatten a world-space opaque triangle soup into SceneData + BVH on
-    `device`.  Emissive triangles become the triangle-light set.
-    Alpha-tested materials (the opaque/alpha split) come with a later
-    slice; an HDR environment is attached with `attach_env`."""
+    """Flatten a world-space triangle soup into SceneData + BVH on
+    `device`.  Emissive triangles become the triangle-light set; a soup
+    that mixes opaque and alpha-tested materials gets the opaque/alpha
+    BVH split; an HDR environment is attached with `attach_env`."""
     v0, v1, v2, prep = _prep_attrs(v0, v1, v2, normals, uvs, tangents,
                                    colors, mat_ids)
     mat_ids = prep["mat"]
     if materials is None:
         materials = [{}]
     mat_table = make_materials(materials)
-    if (np.asarray(mat_table.alpha_mode)[mat_ids] != ALPHA_OPAQUE).any():
-        raise NotImplementedError(
-            "alpha-tested geometry (the opaque/alpha BVH split) is ported "
-            "with the alpha HitTest item (ROADMAP A9)")
 
     em = np.zeros((len(materials), 3), np.float32)
     for i, m in enumerate(materials):
@@ -367,11 +410,23 @@ def upload_scene(v0, v1, v2, *, device, normals=None, uvs=None,
 
     sunsky = finalize_sunsky(sunsky if sunsky is not None
                              else default_sunsky())
-    if leaf_size is None:
-        leaf_size = leaf_size_for(device)
-    bvh = bvh_to_device(build_bvh_np(v0, v1, v2, leaf_size), device)
+    # opaque/alpha split: the HitTest hops never touch the opaque bulk
+    T = v0.shape[0]
+    alpha_tri = np.asarray(mat_table.alpha_mode)[mat_ids] != ALPHA_OPAQUE
+    if alpha_tri.any() and not alpha_tri.all():
+        op = np.nonzero(~alpha_tri)[0].astype(np.int32)
+        al = np.nonzero(alpha_tri)[0].astype(np.int32)
+        bvh = build_bvh(v0[op], v1[op], v2[op], device=device,
+                        leaf_size=leaf_size, prim_ids=op, n_tris_global=T)
+        bvh_alpha = build_bvh(v0[al], v1[al], v2[al], device=device,
+                              leaf_size=leaf_size, prim_ids=al,
+                              n_tris_global=T)
+    else:
+        bvh = build_bvh(v0, v1, v2, device=device, leaf_size=leaf_size)
+        bvh_alpha = None
     host = SceneData(
         bvh=bvh,
+        bvh_alpha=bvh_alpha,
         tri_gn=prep["gn"],
         tri_nrm=prep["nrm"],
         tri_uv=prep["uv"],
@@ -387,6 +442,198 @@ def upload_scene(v0, v1, v2, *, device, normals=None, uvs=None,
         lights=lights,
         env=None,
         sunsky=sunsky,
+    )
+    return to_device(host, device)
+
+
+def upload_scene_instanced(meshes: list[dict], instances, *, device,
+                           materials=None, textures=None, punctual=None,
+                           sunsky=None, leaf_size: int | None = None
+                           ) -> SceneData:
+    """Instanced upload (eidola_tpu/scene/data.py:555-781): shared
+    object-space attribute pools + a two-level BVH, so N instances of a
+    mesh cost about one copy of it.
+
+    meshes: [{"v0", "v1", "v2", optional "normals"/"uvs"/"tangents"/
+    "colors"/"mat_ids"}] in object space; instances: [(mesh index, 4x4 or
+    3x4 object->world)].  Emissive triangles are baked to world space per
+    instance for the NEE light table; an emitter hit finds its pdf
+    through inst.pmf_scale.  A scene mixing opaque and alpha-tested
+    materials splits: the opaque half is an instanced BVH over the opaque
+    subsets, the alpha half a flat world-space BVH; both report ids in
+    the full instanced numbering."""
+    if materials is None:
+        materials = [{}]
+    if leaf_size is None:
+        leaf_size = leaf_size_for(device)
+    mat_table = make_materials(materials)
+
+    preps, mesh_v = [], []
+    for m in meshes:
+        mv0, mv1, mv2, prep = _prep_attrs(
+            m["v0"], m["v1"], m["v2"], m.get("normals"), m.get("uvs"),
+            m.get("tangents"), m.get("colors"), m.get("mat_ids"))
+        preps.append(prep)
+        mesh_v.append((mv0, mv1, mv2))
+    pool = {k: np.concatenate([p[k] for p in preps], axis=0)
+            for k in preps[0]}
+    attr_base_mesh = np.zeros(len(meshes) + 1, np.int64)
+    for k, (mv0, _, _) in enumerate(mesh_v):
+        attr_base_mesh[k + 1] = attr_base_mesh[k] + mv0.shape[0]
+
+    em = np.zeros((len(materials), 3), np.float32)
+    for i, m in enumerate(materials):
+        em[i] = np.asarray(m.get("emissive", [0, 0, 0]), np.float32)
+    lum_mat = (em * [0.2126, 0.7152, 0.0722]).sum(-1)
+    pool_lum = lum_mat[pool["mat"]]
+    pool_em_mask = pool_lum > 0.0
+    # the pool's pmf holds the unnormalized object-space weight (lum x
+    # mesh area); inst.pmf_scale makes it the world pmf per instance
+    pool_w = np.where(pool_em_mask, pool_lum * pool["area"], 0.0).astype(
+        np.float32)
+
+    I = len(instances)
+    mesh_of = np.asarray([mi for (mi, _) in instances], np.int64)
+    mats3x4 = [affine_3x4(m) for _, m in instances]
+    rot = np.stack([m[:3, :3] for m in mats3x4])
+    det = np.linalg.det(rot)
+    nrm_rot = np.stack([np.linalg.inv(r).T for r in rot])
+    area_scale = np.abs(det) ** (2.0 / 3.0)
+    tri_base = np.zeros(I, np.int64)
+    acc = 0
+    for k in range(I):
+        tri_base[k] = acc
+        acc += mesh_v[mesh_of[k]][0].shape[0]
+
+    # world-space emissive triangles, per instance
+    ev0, ev1, ev2, eem = [], [], [], []
+    for k in range(I):
+        mi = mesh_of[k]
+        sl = slice(attr_base_mesh[mi], attr_base_mesh[mi + 1])
+        mask = pool_em_mask[sl]
+        if not mask.any():
+            continue
+        r3, t3 = mats3x4[k][:3, :3], mats3x4[k][:3, 3]
+        mv0, mv1, mv2 = mesh_v[mi]
+        ev0.append((mv0[mask] @ r3.T + t3).astype(np.float32))
+        ev1.append((mv1[mask] @ r3.T + t3).astype(np.float32))
+        ev2.append((mv2[mask] @ r3.T + t3).astype(np.float32))
+        eem.append(em[pool["mat"][sl][mask]])
+    cat = lambda xs, c: (np.concatenate(xs) if xs
+                         else np.zeros((0, c), np.float32))
+    lights = build_lights(punctual, cat(ev0, 3), cat(ev1, 3), cat(ev2, 3),
+                          cat(eem, 3))
+    # world pmf of instance k's emissive tri = pool_w * area_scale[k] / W,
+    # W the total emissive world weight the alias table normalized by
+    if ev0:
+        e1w = cat(ev1, 3) - cat(ev0, 3)
+        e2w = cat(ev2, 3) - cat(ev0, 3)
+        w_area = 0.5 * np.linalg.norm(np.cross(e1w, e2w), axis=-1)
+        w_lum = (cat(eem, 3) * [0.2126, 0.7152, 0.0722]).sum(-1)
+        W = float((w_area * w_lum).sum())
+    else:
+        W = 0.0
+    pmf_scale = (area_scale / W if W > 0 else np.zeros(I)).astype(np.float32)
+
+    from .sunsky import finalize_sunsky
+
+    sunsky = finalize_sunsky(sunsky if sunsky is not None
+                             else default_sunsky())
+    inst = Instancing(
+        tri_base=tri_base.astype(np.int32),
+        attr_base=attr_base_mesh[mesh_of].astype(np.int32),
+        rot=rot.reshape(I, 9).astype(np.float32),
+        nrm_rot=nrm_rot.reshape(I, 9).astype(np.float32),
+        det_sign=np.sign(det).astype(np.float32),
+        area_scale=area_scale.astype(np.float32),
+        uvd_scale=(1.0 / np.sqrt(np.maximum(area_scale, 1e-20))).astype(
+            np.float32),
+        pmf_scale=pmf_scale,
+    )
+
+    # opaque/alpha split per mesh triangle (each glTF primitive has one
+    # material, so per-mesh masks are exact)
+    alpha_mode = np.asarray(mat_table.alpha_mode)
+    mesh_alpha = [alpha_mode[pool["mat"][attr_base_mesh[k]:
+                                         attr_base_mesh[k + 1]]]
+                  != ALPHA_OPAQUE for k in range(len(meshes))]
+    mesh_tris_full = [int(m.shape[0]) for m in mesh_alpha]
+    any_alpha = any(m.any() for m in mesh_alpha)
+    all_alpha = all(m.all() for m in mesh_alpha)
+    n_virtual = int(tri_base[-1]) + mesh_tris_full[mesh_of[-1]] if I else 0
+
+    def opaque_bvh():
+        """Instanced BVH over each mesh's opaque triangles."""
+        sel_meshes, sel_ids, sel_full, remap = [], [], [], {}
+        for k, mask in enumerate(mesh_alpha):
+            keep = ~mask
+            if not keep.any():
+                continue
+            idx = np.nonzero(keep)[0].astype(np.int32)
+            mv0, mv1, mv2 = mesh_v[k]
+            remap[k] = len(sel_meshes)
+            sel_meshes.append((mv0[idx], mv1[idx], mv2[idx]))
+            sel_ids.append(idx)
+            sel_full.append(mesh_tris_full[k])
+        sel_inst, sel_base = [], []
+        for i, (mi, m) in enumerate(instances):
+            if mi in remap:
+                sel_inst.append((remap[mi], m))
+                sel_base.append(int(tri_base[i]))
+        return build_instanced_bvh(
+            sel_meshes, sel_inst, device=device, leaf_size=leaf_size,
+            mesh_prim_ids=sel_ids, mesh_tris_full=sel_full,
+            inst_tri_base_override=np.asarray(sel_base, np.int64),
+            n_tris_virtual=n_virtual)
+
+    def flat_alpha_bvh():
+        """World-space flat BVH over the alpha triangles (ids in the
+        instanced numbering): no per-event transform in its drains, one
+        global SAH over all canopies, and the walk kernel can take it."""
+        v0w, v1w, v2w, ids = [], [], [], []
+        for i, (mi, _) in enumerate(instances):
+            mask = mesh_alpha[mi]
+            if not mask.any():
+                continue
+            idx = np.nonzero(mask)[0]
+            mv0, mv1, mv2 = mesh_v[mi]
+            r3, t3 = mats3x4[i][:3, :3], mats3x4[i][:3, 3]
+            v0w.append((mv0[idx] @ r3.T + t3).astype(np.float32))
+            v1w.append((mv1[idx] @ r3.T + t3).astype(np.float32))
+            v2w.append((mv2[idx] @ r3.T + t3).astype(np.float32))
+            ids.append((idx + int(tri_base[i])).astype(np.int32))
+        return build_bvh(np.concatenate(v0w), np.concatenate(v1w),
+                         np.concatenate(v2w), device=device,
+                         leaf_size=leaf_size, prim_ids=np.concatenate(ids),
+                         n_tris_global=n_virtual)
+
+    if any_alpha and not all_alpha:
+        bvh = opaque_bvh()
+        bvh_alpha = flat_alpha_bvh()
+    else:
+        bvh = build_instanced_bvh(mesh_v, instances, device=device,
+                                  leaf_size=leaf_size)
+        bvh_alpha = None
+
+    host = SceneData(
+        bvh=bvh,
+        bvh_alpha=bvh_alpha,
+        tri_gn=pool["gn"],
+        tri_nrm=pool["nrm"],
+        tri_uv=pool["uv"],
+        tri_tangent=pool["tangent"],
+        tri_hand=pool["hand"],
+        tri_color=pool["color"],
+        tri_mat=pool["mat"],
+        tri_light_pmf=pool_w,
+        tri_light_area=pool["area"],
+        tri_uv_density=pool["uvd"],
+        materials=mat_table,
+        textures=make_tex_stack(textures),
+        lights=lights,
+        env=None,
+        sunsky=sunsky,
+        inst=inst,
     )
     return to_device(host, device)
 

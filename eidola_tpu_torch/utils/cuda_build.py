@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 # every csrc/<name>.cu; chip_smoke.py builds them all at once
-CUDA_SOURCES = ("bvh_fused", "bvh_walk")
+CUDA_SOURCES = ("bvh_fused", "bvh_mxu", "bvh_walk")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -1,5 +1,5 @@
-"""Seeded inputs for the fused leaf drains (ops/bvh_fused.py), shared by
-the tests and chip_smoke.py.
+"""Seeded inputs for the leaf drains (ops/bvh_fused.py, ops/bvh_mxu.py),
+shared by the tests and chip_smoke.py.
 
 A case is a table of random leaves and a compacted event list shaped
 like a traversal drain: runs of events per sub-packet (segments), an
@@ -17,8 +17,9 @@ from ..ops.bvh_fused import build_leaf_tables_np
 
 def make_case(n: int, n_leaves: int, runs, ce: int, seed: int,
               spread: float = 0.0) -> dict:
-    """numpy arrays: cm (L,16,4n), anchor (ce,3), leaf/sp/valid (ce,)
-    int32, rays: 8 planes (ce,128) f32 [ox,oy,oz,dx,dy,dz,tmin,tlim]."""
+    """numpy arrays: cm (L,16,4n), blocks (L,12n), anchor (ce,3),
+    leaf/sp/valid (ce,) int32, rays: 8 planes (ce,128) f32
+    [ox,oy,oz,dx,dy,dz,tmin,tlim]."""
     rng = np.random.default_rng(seed)
     L = n_leaves
     centers = rng.uniform(-spread, spread, (L, 1, 3)).astype(np.float32)
@@ -54,7 +55,8 @@ def make_case(n: int, n_leaves: int, runs, ce: int, seed: int,
     g = lambda a: np.ascontiguousarray(a[sp])
     rays = [g(o[..., 0]), g(o[..., 1]), g(o[..., 2]), g(d[..., 0]),
             g(d[..., 1]), g(d[..., 2]), g(tmin), g(tlim)]
-    return dict(cm=cm, anchor=np.ascontiguousarray(anchor[leaf]), leaf=leaf,
+    return dict(cm=cm, blocks=blocks.reshape(L, n * 12),
+                anchor=np.ascontiguousarray(anchor[leaf]), leaf=leaf,
                 sp=sp, valid=valid, rays=rays, n=n, n_valid=n_valid)
 
 
@@ -77,3 +79,15 @@ def torch_args(case: dict, device, closest: bool) -> list:
         case["sp"], case["valid"]]
     return ([t(case["cm"]), t(case["anchor"])] + [t(a) for a in ints]
             + [t(r) for r in case["rays"]])
+
+
+def mxu_args(case: dict, device) -> list:
+    """The arguments of ops/bvh_mxu.mt_mxu (without n_tris) as tensors on
+    `device`: each event's gathered leaf row, then the 8 ray planes; the
+    rays of the invalid tail are dead (t_lim = -1 < t_min)."""
+    import torch
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    rays = [np.array(r) for r in case["rays"]]
+    rays[7][case["valid"] == 0] = -1.0
+    return [t(case["blocks"][case["leaf"]])] + [t(r) for r in rays]

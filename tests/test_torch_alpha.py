@@ -1,0 +1,268 @@
+"""The port's alpha HitTest (render/tracer.py) and the opaque/alpha BVH
+split (scene/data.py) against the JAX package's.
+
+- The scenes `alpha` (a flat scene whose MASK screen splits off) and
+  `mini_grove` (instanced trees whose MASK leaf cards split into a flat
+  world-space alpha BVH) equal the JAX-built arrays bit for bit.
+- `_surface_opacity` and `_alpha_passthrough` on the same hit records and
+  rng words in both packages.
+- Alpha `trace_closest` and `trace_occlusion` against JAX's on both
+  scenes, with the lockstep hop loop both packages run on the CPU.
+- The queue march equals the lockstep loop on MASK materials, where the
+  alpha test draws no rng that matters (tests/test_alpha.py:178-234):
+  stacked MASK quads, with 64 rays and with 36,864 rays (enough for the
+  staged capacities 32768 -> 8192 to run several laps), and mini_grove.
+- In both march modes, rays that miss the alpha set or pass through it
+  get the opaque half's hits and occlusion.
+- The headless entry point turns the HitTest on from the scene and
+  renders `alpha` and `mini_grove` on the CPU; its device defaults to
+  cuda.
+
+Tolerances: scene arrays bitwise; opacity within 1e-6 (bilinear texture
+taps in f32), passthrough verdicts and rng words equal.  Traced records:
+triangle ids equal on >= 0.999 of rays (a different winner only at an
+exact-t tie, ROADMAP C item 1), t within 1e-4 relative; occlusion equal.
+Queue vs lockstep, and HitTest vs the opaque half, on one package: ids,
+t and occlusion equal.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import eidola_tpu.models.scenes as JS
+import eidola_tpu.ops.rng as jrng
+import eidola_tpu.render.tracer as JT
+from eidola_tpu.render.config import RenderConfig as JConfig
+from eidola_tpu_torch import interop
+from eidola_tpu_torch.models import scenes as TS
+from eidola_tpu_torch.ops import bvh as TB
+from eidola_tpu_torch.ops import rng as trng
+from eidola_tpu_torch.render import tracer as TT
+from eidola_tpu_torch.render.config import RenderConfig
+from eidola_tpu_torch.scene import data as TD
+from test_torch_instanced import _compare_tree
+
+torch.set_num_threads(2)
+CPU = torch.device("cpu")
+SCENES = {"alpha": ("alpha_demo", [0.0, 1.2, 0.0], 1.6),
+          "mini_grove": ("mini_grove", [0.0, 1.8, 0.0], 3.0)}
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def pair(request):
+    name, center, spread = SCENES[request.param]
+    js, _ = getattr(JS, name)()
+    ts, _ = getattr(TS, name)(device=CPU)
+    return request.param, js, ts, center, spread
+
+
+def _rays(center, spread, n=256, seed=3):
+    """Rays from a ring around the scene aimed at its alpha geometry."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    o = np.stack([6 * np.sin(ang), rng.uniform(0.5, 4, n), 6 * np.cos(ang)],
+                 -1).astype(np.float32)
+    tgt = (np.asarray(center) + rng.uniform(-spread, spread, (n, 3))
+           ).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d
+
+
+def test_split_scene_matches_jax(pair):
+    name, js, ts, _, _ = pair
+    assert ts.bvh_alpha is not None and js.bvh_alpha is not None
+    assert isinstance(ts.bvh_alpha, TB.BVH)           # the flat alpha BVH
+    assert (ts.inst is not None) == (name == "mini_grove")
+    _compare_tree(interop.to_numpy(ts), js)
+    # each triangle belongs to exactly one half, by its material
+    op = ts.bvh.slot_of_tri >= 0
+    al = ts.bvh_alpha.slot_of_tri >= 0
+    assert bool((op ^ al).all()) and al.any()
+
+
+def _records(ts, o, d):
+    """Closest hits on the alpha half: records of alpha-tested hits."""
+    n = o.shape[0]
+    return TB.closest_hit(ts.bvh_alpha, torch.from_numpy(o),
+                          torch.from_numpy(d), torch.full((n,), 1e-4),
+                          torch.full((n,), 1e8))
+
+
+def test_opacity_and_passthrough_match_jax(pair):
+    _, js, ts, center, spread = pair
+    o, d = _rays(center, spread)
+    rec = _records(ts, o, d)
+    hit = rec.tri >= 0
+    assert hit.float().mean() > 0.2
+    jrec = [jnp.asarray(a.numpy()) for a in rec]
+    top = TT._surface_opacity(ts, rec.tri, rec.u, rec.v)
+    jop = JT._surface_opacity(js, jrec[0], jrec[2], jrec[3])
+    np.testing.assert_allclose(top.numpy(), np.asarray(jop), atol=1e-6)
+    rng_t = trng.seed_pixels(1, o.shape[0], 7, device=CPU)[0]
+    rng_j = jrng.seed_pixels(1, o.shape[0], jnp.uint32(7))[0]
+    r_t, pt = TT._alpha_passthrough(ts, rec, rng_t)
+    r_j, pj = JT._alpha_passthrough(js, type(rec)(*jrec), rng_j)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_j).astype(
+        np.int64))
+    # some hits pass through the MASK, some are solid
+    assert pt[hit].any() and (~pt[hit]).any()
+
+
+def _cfgs(**kw):
+    return (RenderConfig(width=8, height=8, alpha_geometry=True, **kw),
+            JConfig(width=8, height=8, alpha_geometry=True, **kw))
+
+
+def test_alpha_traces_match_jax(pair, monkeypatch):
+    _, js, ts, center, spread = pair
+    monkeypatch.setenv("EIDOLA_ALPHA_MARCH", "lockstep")
+    o, d = _rays(center, spread, seed=4)
+    n = o.shape[0]
+    cfg, jcfg = _cfgs(traversal_max_steps=2048)
+    tmin, tmax = np.full(n, 1e-4, np.float32), np.full(n, 1e8, np.float32)
+    smax = np.where(np.arange(n) % 2, 1e8, 5.0).astype(np.float32)
+    t = lambda a: torch.from_numpy(a)
+    j = lambda a: jnp.asarray(a)
+    rng_t = trng.seed_pixels(1, n, 3, device=CPU)[0]
+    rng_j = jrng.seed_pixels(1, n, jnp.uint32(3))[0]
+
+    rt, rec = TT.trace_closest(cfg, ts, t(o), t(d), t(tmin), t(tmax), rng_t)
+    rj, jrec = JT.trace_closest(jcfg, js, j(o), j(d), j(tmin), j(tmax),
+                                rng_j)
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj).astype(np.int64))
+    jtri, ttri = np.asarray(jrec.tri), rec.tri.numpy()
+    hits = jtri >= 0
+    np.testing.assert_array_equal(ttri >= 0, hits)
+    assert (ttri == jtri).mean() >= 0.999
+    np.testing.assert_allclose(rec.t.numpy()[hits], np.asarray(jrec.t)[hits],
+                               rtol=1e-4)
+    # the march passed through leaves/cut-outs: some final hits are opaque
+    # geometry behind an alpha-tested hit of the plain split closest hit
+    first = TB.closest_hit(ts.bvh_alpha, t(o), t(d), t(tmin), t(tmax))
+    assert ((first.tri >= 0) & (rec.t > first.t + 1e-3)).any()
+
+    ot, occ = TT.trace_occlusion(cfg, ts, t(o), t(d), t(tmin), t(smax),
+                                 rng_t)
+    oj, jocc = JT.trace_occlusion(jcfg, js, j(o), j(d), j(tmin), j(smax),
+                                  rng_j)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj).astype(np.int64))
+    assert 0 < int(occ.sum()) < n
+
+
+def _stacked_quads(alpha):
+    """Three stacked MASK quads in front of a box (tests/test_alpha.py)."""
+    quads = [TS.quad_tris([-2, -2, z], [2, -2, z], [2, 2, z], [-2, 2, z])
+             for z in (1.0, 1.3, 1.6)]
+    box = TS.box_tris([0, 0, -1.0], [0.5, 0.5, 0.5])
+    tris = np.concatenate(quads + [box])
+    nq = sum(q.shape[0] for q in quads)
+    mats = np.concatenate([np.zeros(nq, np.int32),
+                           np.ones(box.shape[0], np.int32)])
+    return TD.upload_scene(
+        tris[:, 0], tris[:, 1], tris[:, 2], device=CPU, mat_ids=mats,
+        materials=[{"base_color": [1, 1, 1, alpha],
+                    "alpha_mode": TD.ALPHA_MASK, "alpha_cutoff": 0.5},
+                   {"base_color": [0.5, 0.2, 0.2, 1.0]}])
+
+
+def _march_both(scene, o, d, monkeypatch, smax=6.0, **kw):
+    n = o.shape[0]
+    cfg = RenderConfig(width=8, height=8, alpha_geometry=True, **kw)
+    rng = trng.seed_pixels(1, n, 5, device=CPU)[0]
+    out = {}
+    for mode in ("queue", "lockstep"):
+        monkeypatch.setenv("EIDOLA_ALPHA_MARCH", mode)
+        _, rec = TT.trace_closest(cfg, scene, o, d, torch.full((n,), 1e-4),
+                                  torch.full((n,), 1e8), rng)
+        _, occ = TT.trace_occlusion(cfg, scene, o, d, torch.full((n,), 1e-4),
+                                    torch.full((n,), smax), rng)
+        out[mode] = (rec, occ)
+    (rq, oq), (rl, ol) = out["queue"], out["lockstep"]
+    assert torch.equal(rq.tri, rl.tri)
+    assert torch.equal(rq.t, rl.t)
+    assert torch.equal(oq, ol)
+    return rl, ol
+
+
+@pytest.mark.parametrize("n", [64, 36864])
+@pytest.mark.parametrize("alpha", [0.0, 1.0])
+def test_queue_matches_lockstep_mask(alpha, n, monkeypatch):
+    scene = _stacked_quads(alpha)
+    rng = np.random.default_rng(n)
+    o = torch.from_numpy(np.concatenate(
+        [rng.uniform(-1.5, 1.5, (n, 2)), np.full((n, 1), 4.0)], 1
+    ).astype(np.float32))
+    d = torch.tensor([0.0, 0.0, -1.0]).expand(n, 3).contiguous()
+    if n > 64:
+        assert TT._march_caps(n) == [32768, 8192]
+    rec, occ = _march_both(scene, o, d, monkeypatch, alpha_hops=4,
+                           traversal_max_steps=512)
+    box_hit = (rec.t - 4.5).abs() < 1e-3
+    if alpha == 0.0:            # every quad passed: only the box counts
+        assert bool(box_hit[o[:, :2].abs().amax(1) < 0.5].all())
+        assert torch.equal(occ, box_hit) and bool(occ.any())
+    else:                       # the nearest quad (z = 1.6) is solid
+        assert bool(((rec.t - 2.4).abs() < 1e-3).all()) and bool(occ.all())
+
+
+def test_queue_matches_lockstep_mini_grove(monkeypatch):
+    scene, _ = TS.mini_grove(device=CPU)
+    o, d = _rays([0.0, 1.8, 0.0], 3.0, n=512, seed=9)
+    rec, occ = _march_both(scene, torch.from_numpy(o), torch.from_numpy(d),
+                           monkeypatch, smax=5.0, traversal_max_steps=2048)
+    assert (rec.tri >= 0).float().mean() > 0.3 and 0 < int(occ.sum()) < 512
+
+
+@pytest.mark.parametrize("scene", ["alpha", "mini_grove"])
+def test_headless_turns_the_hittest_on(scene):
+    """The entry point sets alpha_geometry from the scene's materials and
+    renders the default frame on the CPU when asked to."""
+    from eidola_tpu_torch.app import headless
+
+    out = headless.run(["--scene", scene, "--size", "32", "32", "--frames",
+                        "2", "--device", "cpu", "--quiet"])
+    img = out["image"]
+    assert out["alpha_geometry"] is True
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert 0.02 < img.mean() < 1.0 and img.min() >= 0.0 and img.max() <= 1.0
+    assert headless.build_argparser().parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("march", ["queue", "lockstep"])
+@pytest.mark.parametrize("alpha", [0.0, 1.0])
+def test_hittest_against_opaque_half(alpha, march, monkeypatch):
+    """Rays through the stacked quads and beside them, in each march
+    mode: with every quad cut out (alpha 0) the HitTest gives the opaque
+    half's closest hit and occlusion on every ray; with solid quads
+    (alpha 1) the rays inside their footprint stop on the nearest quad
+    (t = 2.4) and the rays beside it still get the opaque half's."""
+    scene = _stacked_quads(alpha)
+    rng_np = np.random.default_rng(3)
+    o = np.tile([0.0, 0.0, 4.0], (128, 1)).astype(np.float32)
+    o[:, 0:2] += rng_np.uniform(-6, 6, (128, 2)).astype(np.float32)
+    o = torch.from_numpy(o)
+    d = torch.tensor([0.0, 0.0, -1.0]).expand(128, 3).contiguous()
+    tmin, tmax = torch.full((128,), 1e-4), torch.full((128,), 1e8)
+    smax = torch.full((128,), 6.0)
+    inside = o[:, :2].abs().amax(1) < 2.0
+    assert bool(inside.any()) and not bool(inside.all())
+    cfg = RenderConfig(width=8, height=16, alpha_geometry=True,
+                       alpha_hops=4, traversal_max_steps=512)
+    rng = trng.seed_pixels(1, 128, 5, device=CPU)[0]
+    monkeypatch.setenv("EIDOLA_ALPHA_MARCH", march)
+    _, rec = TT.trace_closest(cfg, scene, o, d, tmin, tmax, rng)
+    _, occ = TT.trace_occlusion(cfg, scene, o, d, tmin, smax, rng)
+    opaque = TB.closest_hit(scene.bvh, o, d, tmin, tmax)
+    opaque_occ = TB.any_hit(scene.bvh, o, d, tmin, smax)
+    assert bool((opaque.tri >= 0).any()) and bool((opaque.tri < 0).any())
+    beside = ~inside if alpha == 1.0 else torch.ones_like(inside)
+    assert torch.equal(rec.tri[beside], opaque.tri[beside])
+    assert torch.equal(rec.t[beside], opaque.t[beside])
+    assert torch.equal(occ[beside], opaque_occ[beside])
+    if alpha == 1.0:
+        assert bool(((rec.t[inside] - 2.4).abs() < 1e-3).all())
+        assert bool(occ[inside].all())

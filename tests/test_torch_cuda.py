@@ -7,7 +7,7 @@ so it runs on a machine with the card but no JAX:
 
 (`--noconftest`: the suite's conftest.py configures JAX.)  Built without
 FMA contraction, each kernel must agree with its plain version bit for
-bit, invalid tail rows included; the walk kernel against `walk_ref`
+bit, invalid tail rows included (mt_mxu: dead rays); the walk kernel against `walk_ref`
 with group=1 (its one-block-per-packet semantics), outputs and per-packet
 step and event counts alike.
 """
@@ -17,8 +17,10 @@ import torch
 
 from eidola_tpu_torch.ops import bvh as TB
 from eidola_tpu_torch.ops import bvh_fused as TF
+from eidola_tpu_torch.ops import bvh_mxu as TM
 from eidola_tpu_torch.ops import bvh_walk as TW
-from eidola_tpu_torch.utils.drain_case import make_case, random_runs, torch_args
+from eidola_tpu_torch.utils.drain_case import (make_case, mxu_args,
+                                               random_runs, torch_args)
 
 torch.set_num_threads(2)
 
@@ -68,6 +70,25 @@ def test_any_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed):
     assert TF.LAUNCHES["mt_any_fused"] == before + 1
     assert 0 < int(h.sum()) < h.numel()
     assert torch.equal(h, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,leaves,runs,ce,spread,seed", CASES)
+def test_mxu_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed):
+    """mt_mxu on gathered leaf rows: exact-t ties inside each event
+    (triangle 1 duplicates 0) and across events (leaf 1 duplicates leaf
+    0), a dead invalid tail."""
+    c = make_case(n, leaves, runs, ce, seed, spread)
+    args = mxu_args(c, cuda)
+    before = TM.LAUNCHES["mt_mxu"]
+    out = TM.mt_mxu(args[0], n, *args[1:])
+    ref = TM.mt_mxu_ref(args[0], n, *args[1:])
+    torch.cuda.synchronize()
+    assert TM.LAUNCHES["mt_mxu"] == before + 1
+    hit = out[0] < 1e30
+    assert hit.any() and not hit[c["n_valid"]:].any()
+    for a, b in zip(out, ref):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def _walk_case(dev, leaf_size, seed):

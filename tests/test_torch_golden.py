@@ -1,9 +1,11 @@
 """The port's default frame against the JAX package's stored goldens.
 
-Cornell, punctual, textured and hdr at 64x64, max_depth=2,
+Cornell, punctual, textured, hdr and alpha at 64x64, max_depth=2,
 traversal_max_steps=1024, 4 frames, every other RenderConfig field at its
-default (ReSTIR DI + GI, a-trous denoise): the config of
-tests/test_golden.py, whose CPU renders are `tests/golden/*_64_d2_f4.npy`.
+default (ReSTIR DI + GI, a-trous denoise; alpha with the HitTest on): the
+config of tests/test_golden.py, whose CPU renders are
+`tests/golden/*_64_d2_f4.npy`.  On the CPU the alpha march runs in
+lockstep, as the JAX package's does there.
 The port renders on the CPU through both traversals (the default torch
 walk, and the one-kernel walk's plain version under EIDOLA_TRAV=pallas);
 each linear HDR output must be within 0.02 mean absolute error of the
@@ -25,13 +27,14 @@ from eidola_tpu_torch.render.frame import init_frame_state, make_step
 torch.set_num_threads(2)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-CASES = {"cornell": "sunsky", "hdr": "hdr", "punctual": "sunsky",
-         "textured": "sunsky"}
+CASES = {"alpha": "sunsky", "cornell": "sunsky", "hdr": "hdr",
+         "punctual": "sunsky", "textured": "sunsky"}
 
 
 def render_golden_case(scene_key: str, device) -> np.ndarray:
     cfg = RenderConfig(width=64, height=64, max_depth=2,
-                       traversal_max_steps=1024, env_mode=CASES[scene_key])
+                       traversal_max_steps=1024, env_mode=CASES[scene_key],
+                       alpha_geometry=scene_key == "alpha")
     scene, cam = load_scene(scene_key, device=device)
     params, tm = default_params(device=device), default_tonemap(device=device)
     state = init_frame_state(cfg, cam)

@@ -1,9 +1,12 @@
 """The port's scene pipeline against the JAX package's, and the port's
 independence from JAX.
 
-- The port's own `cornell_box()` and `stress_grid(n=2)` (built on the
-  CPU: 8-triangle leaves) produce the same arrays as the JAX package's,
-  bit for bit, field by field: attributes, materials, lights and their
+- The port's own `cornell_box()`, `stress_grid(n=2)`,
+  `bistro_standin(target_mtris=0.02)` (instanced, textured, alpha-MASK
+  foliage split off into a flat BVH) and `bistro_hdr(0.02)` (the same
+  under an HDR environment; built on the CPU: 8-triangle leaves)
+  produce the same arrays as the JAX package's, bit for bit, field by
+  field: attributes, materials, lights and their
   alias tables, textures, sun & sky parameters and the whole BVH (the
   JAX CPU build carries no coefficient table; the port's is held against
   the JAX `build_leaf_tables_np` of the same leaves).  The one exception
@@ -24,6 +27,7 @@ import torch
 import eidola_tpu.models.scenes as JS
 import eidola_tpu.ops.bvh_fused as JF
 import eidola_tpu_torch
+from eidola_tpu_torch.ops import bvh as TB
 from eidola_tpu_torch import interop
 from eidola_tpu_torch.models import scenes as TS
 
@@ -53,15 +57,30 @@ def _compare(port, ref, path=""):
                                       err_msg=path)
 
 
-@pytest.mark.parametrize("name,kwargs", [("cornell_box", {}),
-                                         ("stress_grid", {"n": 2})])
+def _with_table(jbvh):
+    """A JAX CPU-built BVH with the coefficient table the port carries."""
+    if jbvh is None:
+        return None
+    cm, anchor = JF.build_leaf_tables_np(np.asarray(jbvh.leaf_blocks), 8)
+    return jbvh._replace(leaf_cmat=cm, leaf_anchor=anchor)
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("cornell_box", {}), ("stress_grid", {"n": 2}),
+    ("bistro_standin", {"target_mtris": 0.02}),
+    ("bistro_hdr", {"target_mtris": 0.02})])
 def test_scene_arrays_equal_jax(name, kwargs):
     js, jcam = getattr(JS, name)(**kwargs)
     ts, tcam = getattr(TS, name)(device="cpu", **kwargs)
     assert ts.bvh.leaf_size == js.bvh.leaf_size == 8
-    cm, anchor = JF.build_leaf_tables_np(np.asarray(js.bvh.leaf_blocks), 8)
-    jbvh = js.bvh._replace(leaf_cmat=cm, leaf_anchor=anchor)
-    _compare(interop.to_numpy(ts), js._replace(bvh=jbvh))
+    if name == "bistro_standin":
+        # instanced, textured (base colour + normal maps), MASK foliage
+        assert ts.inst is not None and isinstance(ts.bvh_alpha, TB.BVH)
+        assert int(ts.bvh.n_tris) >= 20_000
+        assert int((ts.materials.normal_tex >= 0).sum()) > 0
+        assert ts.textures.data.shape[0] > 1
+    _compare(interop.to_numpy(ts), js._replace(
+        bvh=_with_table(js.bvh), bvh_alpha=_with_table(js.bvh_alpha)))
     _compare(interop.to_numpy(tcam), jcam)
 
 
@@ -102,11 +121,29 @@ def test_unported_options_raise():
 
     scene, cam = TS.load_scene("cornell", device="cpu")
     for opt in (dict(primary_seed=True), dict(shadow_cadence=2),
-                dict(spatial_rounds=1), dict(alpha_geometry=True)):
+                dict(spatial_rounds=1)):
         cfg = RenderConfig(width=16, height=16, **opt)
         with pytest.raises(NotImplementedError):
             render_frame(cfg, scene, cam, default_params(device="cpu"),
                          default_tonemap(device="cpu"),
                          init_frame_state(cfg, cam))
     with pytest.raises(KeyError):
-        TS.load_scene("bistro_standin", device="cpu")
+        TS.load_scene("boxes", device="cpu")
+
+
+def test_profile_reports_steady_busy_share(tmp_path):
+    """--profile-trace traces one extra frame and holds its kernel time
+    against both the traced frame's wall time and the steady frames'
+    mean (the tracer slows the host side of the frame it traces)."""
+    from eidola_tpu_torch.app import headless
+
+    out = headless.run(["--scene", "cornell", "--size", "16", "16",
+                        "--frames", "2", "--no-denoise", "--no-indirect",
+                        "--device", "cpu", "--quiet", "--profile-trace",
+                        str(tmp_path)])
+    prof = out["profile"]
+    assert (tmp_path / "trace.json").is_file()
+    assert prof["wall_ms"] > 0.0
+    assert prof["busy_share"] == prof["kernel_ms"] / prof["wall_ms"]
+    assert prof["steady_busy_share"] == (prof["kernel_ms"]
+                                         / out["ms_per_frame"])
