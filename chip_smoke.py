@@ -10,7 +10,9 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    CUDA versions;
 2. builds every native source of the port at once, one compiler process
    each: csrc/bvh_fused.cu, csrc/bvh_mxu.cu and csrc/bvh_walk.cu with
-   nvcc, the C++ host builders (native/src/eidola_native.cpp) with g++;
+   nvcc, the C++ host library (native/src/eidola_native.cpp) with g++,
+   and prints each kernel's registers, spills and shared memory as
+   ptxas reports them;
 3. DI phase: 2 frames of bistro_flat at 1920x1080 through the headless
    entry point with --no-denoise --no-indirect (the default traversal:
    torch walk + the fused drain kernels);
@@ -23,34 +25,38 @@ imports nothing of JAX and nothing of the JAX package, and in order:
 6. standin phase: the JAX bench's headline frame, bistro_standin (2.89M
    instanced triangles, textures, alpha-MASK foliage split into a flat
    BVH) at 1920x1080 with the default RenderConfig and the alpha HitTest
-   on (set by the app from the scene), EIDOLA_TRAV=pallas, 2 frames: the
-   instanced opaque bulk takes the torch walk and the fused drains, the
-   flat alpha BVH the walk kernel;
-7. mxu phase: bistro_standin at 1920x1080 with --no-denoise
-   --no-indirect under EIDOLA_MT=mxu and the default traversal, 2
-   frames: every closest-hit drain goes through mt_mxu, and neither the
-   fused drains nor the walk kernels run;
-   each of phases 3-7 sets every launch count to 0 just before it and
+   on (set by the app from the scene), EIDOLA_TRAV=pallas, 2 frames:
+   the walk kernels trace the instanced opaque bulk (closest and any
+   hit) and the flat alpha BVH, and no drain kernel runs;
+7. standin DI phase: bistro_standin at 1920x1080 with --no-denoise
+   --no-indirect under the default traversal, 2 frames: the instanced
+   torch walk with the fused drains on object-space rays;
+8. mxu phase: the same DI frame under EIDOLA_MT=mxu, 2 frames: every
+   closest-hit drain goes through mt_mxu, and neither the fused drains
+   nor the walk kernels run;
+   each of phases 3-8 sets every launch count to 0 just before it and
    reads them just after, checks the image (shape, finite, in [0, 1],
    not black) and the accumulation count, that each kernel of its path
    was launched and that the kernels of the other paths were not, and
-   keeps the arguments of each kernel's largest call;
-8. kernel phase: each kernel on those arguments (the frames' own shapes:
+   keeps the arguments of each kernel's largest call (the walk kernels'
+   largest instanced and largest flat call apart);
+9. kernel phase: each kernel on those arguments (the frames' own shapes:
    leaf 64, the full bistro tables) against its plain torch version on
    the card, bitwise, with both times from CUDA events; the walk kernels
    also against walk_ref's per-packet step and event counts, which give
    their bound; plus the drain kernels on a synthetic case with an
    invalid tail and exact-t ties, which the frames do not hold;
-9. goldens on the card: cornell, punctual, textured, hdr and alpha (the
+10. goldens on the card: cornell, punctual, textured, hdr and alpha (the
    HitTest on) at 64x64, max_depth=2, traversal_max_steps=1024, 4
    frames, through the walk kernel, each within 0.02 mean abs of
    tests/golden/*_64_d2_f4.npy;
-10. holds small DI frames on the card against the same frames through
+11. holds small DI frames on the card against the same frames through
    the plain versions on the CPU (cornell 32x32, stress 64x64);
-11. prints one JSON line with an entry per kernel and path (the
-   bistro_flat DI and GI frames, the standin frame, the mxu DI frame):
-   that phase's launches and the kernel's error, times and bound on the
-   phase's largest call; then, last, {"ok": true, "device": {...}}.
+12. prints one JSON line with an entry per kernel and path (the
+   bistro_flat DI and GI frames, the standin frame, the standin DI
+   frames with the fused and the mxu drains): that phase's launches and
+   the kernel's error, times and bound on the phase's largest call;
+   then, last, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.
 """
@@ -70,7 +76,7 @@ GI_ARGS = BISTRO + ["--size", "1920", "1080", "--frames", "4"]
 GI_XLA_ARGS = BISTRO + ["--size", "960", "540", "--frames", "2"]
 STANDIN = ["--scene", "bistro_standin", "--quiet", "--size", "1920", "1080",
            "--frames", "2"]
-MXU_ARGS = STANDIN + ["--no-denoise", "--no-indirect"]
+STANDIN_DI = STANDIN + ["--no-denoise", "--no-indirect"]
 FUSED_SRC = "eidola_tpu_torch/csrc/bvh_fused.cu"
 WALK_SRC = "eidola_tpu_torch/csrc/bvh_walk.cu"
 MXU_SRC = "eidola_tpu_torch/csrc/bvh_mxu.cu"
@@ -92,8 +98,9 @@ GOLDENS = {"alpha": "sunsky", "cornell": "sunsky", "hdr": "hdr",
 STANDIN_TRIS = (2.8e6, 3.0e6)   # 729 lots x (1,728 + 4 x ~560)
 # Moller-Trumbore as a dot of coefficients and ray features (build_cmat):
 # the products by the nonzero coefficients (det 3, t 4, u 6, v 6) and
-# their sums, plus the epilogue.  The drain kernels also multiply the 21
-# zero coefficients of each triangle; the bound does not count them.
+# their sums, plus the epilogue: what the fused drains compute.  mt_mxu
+# also multiplies the 21 zero coefficients of each triangle; the bound
+# does not count them.
 MT_DOT_OPS = 19 + 15
 MT_EPI_OPS = 10
 
@@ -142,13 +149,15 @@ def _reset_launches() -> None:
 
 class Capture:
     """While active, records the size of every call of the named wrappers
-    of `module` and keeps the arguments of each one's largest call.  The
+    of `module` and keeps the arguments (positional, keyword) of each
+    one's largest call, under `key(name, kw)` (default: the name).  The
     wrapper itself still runs and counts its launch (its callers look it
     up on the module at each call); this only watches."""
 
-    def __init__(self, module, names, size):
+    def __init__(self, module, names, size, key=lambda name, kw: name):
         self.module, self.names, self.size = module, names, size
-        self.sizes = {k: [] for k in names}
+        self.key = key
+        self.sizes = {}
         self.args = {}
 
     def __enter__(self):
@@ -159,10 +168,11 @@ class Capture:
 
     def _watch(self, name, fn):
         def call(*args, **kw):
-            n = self.size(args)
-            if n > max(self.sizes[name], default=0):
-                self.args[name] = args
-            self.sizes[name].append(n)
+            n, key = self.size(args), self.key(name, kw)
+            sizes = self.sizes.setdefault(key, [])
+            if n > max(sizes, default=0):
+                self.args[key] = (args, kw)
+            sizes.append(n)
             return fn(*args, **kw)
         return call
 
@@ -178,9 +188,12 @@ def drain_capture():
 
 
 def walk_capture():
+    """Instanced and flat calls apart: "walk_closest+inst" / "walk_closest"."""
     from eidola_tpu_torch.ops import bvh_walk
 
-    return Capture(bvh_walk, WALKS, lambda a: a[2].shape[1])     # packets
+    return Capture(bvh_walk, WALKS, lambda a: a[2].shape[1],     # packets
+                   lambda name, kw: name + ("+inst" if kw.get("inst")
+                                            is not None else ""))
 
 
 def mxu_capture():
@@ -229,7 +242,7 @@ def run_phase(label, argv, shape, frames, trav, captures, used, unused,
     check_frame(res, shape, frames, label)
     args = {k: v for cap in captures for k, v in cap.args.items()}
     for name in used:
-        if launches[name] <= 0 or name not in args:
+        if launches[name.split("+")[0]] <= 0 or name not in args:
             fail(f"{label}: {name} was never launched on its path")
     for name in unused:
         if launches[name] != 0:
@@ -241,7 +254,8 @@ def run_phase(label, argv, shape, frames, trav, captures, used, unused,
           + " ms); stages " + json.dumps(
               {k: round(v, 3) for k, v in res["stage_ms_per_frame"].items()})
           + f"; image mean {res['image_mean']:.4f}; launches "
-          + json.dumps({k: launches[k] for k in used})
+          + json.dumps({k: launches[k] for k in
+                        dict.fromkeys(n.split("+")[0] for n in used)})
           + f"; scene+BVH {res['load_s']:.1f}s; {res['n_tris']} triangles, "
           f"alpha_geometry {res['alpha_geometry']}", flush=True)
     for cap in captures:
@@ -292,14 +306,16 @@ def drain_bound(name, args) -> tuple[float, str]:
     return _bound(bytes_, flops)
 
 
-def walk_bound(walk, leaf_blocks, rays, stats) -> tuple[float, str]:
+def walk_bound(walk, leaf_blocks, rays, stats, inst) -> tuple[float, str]:
     """Least time for one traversal on these inputs, from this run's
     counted work: the walk rows and leaf rows it can have touched (at
     most one row per walk step and one leaf per drained event, each read
     once), rays in and results out, against walk steps x 128 lanes x one
     slab test plus drained events x 128 lanes x leaf_size triangle
-    tests."""
-    from eidola_tpu_torch.ops.bvh_walk import MT_FLOP, WALK_FLOP
+    tests.  An instanced event also reads its two indices and its
+    instance's 12-float transform (at most every leaf's indices and every
+    instance's transform once) and moves 128 rays to object space."""
+    from eidola_tpu_torch.ops.bvh_walk import MT_FLOP, WALK_FLOP, XFORM_FLOP
 
     n = leaf_blocks.shape[1] // 12
     steps = int(stats[:, 0].sum())
@@ -308,6 +324,10 @@ def walk_bound(walk, leaf_blocks, rays, stats) -> tuple[float, str]:
               + min(events, leaf_blocks.shape[0]) * n * 12 * 4
               + rays.numel() * 4 + rays[0].numel() * 4 * 4)
     flops = 128 * (steps * WALK_FLOP + events * n * MT_FLOP)
+    if inst is not None:
+        bytes_ += (min(events, inst[0].shape[0]) * 2 * 4
+                   + min(events, inst[2].shape[0]) * 12 * 4)
+        flops += 128 * events * XFORM_FLOP
     return _bound(bytes_, flops)
 
 
@@ -381,23 +401,25 @@ def check_mxu(args, label) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_walk(name, args, label) -> dict:
-    """The walk kernel on a captured traversal against walk_ref(group=1):
-    outputs and per-packet step/event counts bitwise."""
+def check_walk(name, call, label) -> dict:
+    """The walk kernel on a captured traversal (flat, or instanced with
+    its `inst` tables) against walk_ref(group=1): outputs and per-packet
+    step/event counts bitwise."""
     import torch
 
     from eidola_tpu_torch.ops import bvh_walk as W
 
-    walk, leaf_blocks, rays, max_steps = args
+    (walk, leaf_blocks, rays, max_steps), kw = call
+    inst = kw.get("inst")
     P = rays.shape[1]
     kern = getattr(W, name)
     any_hit = name == "walk_any"
     stats = torch.zeros((P, 2), dtype=torch.int32, device=rays.device)
     ref_stats = torch.zeros_like(stats)
-    got = kern(walk, leaf_blocks, rays, max_steps, stats=stats)
+    got = kern(walk, leaf_blocks, rays, max_steps, stats=stats, inst=inst)
     t0 = time.perf_counter()
     want = W.walk_ref(walk, leaf_blocks, rays, any_hit, max_steps, group=1,
-                      stats=ref_stats)
+                      stats=ref_stats, inst=inst)
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
     err = _equal_bits(got, want)
@@ -405,14 +427,19 @@ def check_walk(name, args, label) -> dict:
         fail(f"{name} ({label}): CUDA kernel differs from walk_ref(group=1) "
              f"(max abs err {err}, counts equal "
              f"{torch.equal(stats, ref_stats)}); the tolerance is bitwise")
-    ms = time_ms(lambda: kern(walk, leaf_blocks, rays, max_steps), 5)
+    ms = time_ms(lambda: kern(walk, leaf_blocks, rays, max_steps,
+                              inst=inst), 5)
     plain_ms = time_ms(lambda: W.walk_ref(walk, leaf_blocks, rays, any_hit,
-                                          max_steps, group=1), 1)
-    bound_ms, bound_by = walk_bound(walk, leaf_blocks, rays, stats)
+                                          max_steps, group=1, inst=inst), 1)
+    bound_ms, bound_by = walk_bound(walk, leaf_blocks, rays, stats, inst)
     s = stats.double()
     hit = float((got[1] >= 0).float().mean())
+    shape = "flat" if inst is None else (
+        f"instanced, {leaf_blocks.shape[0]}-leaf pool under "
+        f"{inst[2].shape[0]} instances")
     print(f"{name} ({label}): {P} packets x 128 lanes, leaf "
-          f"{leaf_blocks.shape[1] // 12}, {walk.shape[0]}-node walk table; "
+          f"{leaf_blocks.shape[1] // 12}, {walk.shape[0]}-node walk table "
+          f"({shape}); "
           f"bitwise equal to walk_ref(group=1), counts equal; walk steps "
           f"{int(s[:, 0].sum())} (mean {float(s[:, 0].mean()):.1f}, max "
           f"{int(s[:, 0].max())} a packet), leaf events {int(s[:, 1].sum())}"
@@ -509,7 +536,8 @@ def reference_phase() -> None:
 def build_phase() -> None:
     from eidola_tpu_torch.native import native_build
     from eidola_tpu_torch.utils.cuda_build import (CUDA_SOURCES,
-                                                   build_together, cuda_build)
+                                                   build_together, cuda_build,
+                                                   ptxas_summary)
 
     native = native_build()
     if native is None:
@@ -519,6 +547,12 @@ def build_phase() -> None:
     build_together(builds)
     print(f"build: {', '.join(b.name for b in builds)} together in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for b in builds:
+        for k in ptxas_summary(b.log):
+            print(f"build: {b.name}: {k['kernel']}: {k['registers']} "
+                  f"registers, {k['spill_stores']} / {k['spill_loads']} bytes "
+                  f"of spill stores / loads, {k['smem']} bytes of shared "
+                  f"memory", flush=True)
 
 
 def main() -> None:
@@ -550,9 +584,9 @@ def main() -> None:
 
     times = {}
     for name in DRAINS:
-        times[name] = check_drain(name, di_cap.args[name],
+        times[name] = check_drain(name, di_cap.args[name][0],
                                   "largest DI frame drain")
-        check_drain(name, gx_cap.args[name], "largest GI (xla) drain")
+        check_drain(name, gx_cap.args[name][0], "largest GI (xla) drain")
     del di_cap, gx_cap
     for name in WALKS:
         times[name] = check_walk(name, gi_cap.args[name],
@@ -560,27 +594,52 @@ def main() -> None:
     del gi_cap
     torch.cuda.empty_cache()
 
-    st_drains, st_walks = drain_capture(), walk_capture()
+    # the headline frame: every traversal through the walk kernels, the
+    # instanced bulk ("+inst") and the flat alpha BVH
+    st_walks = walk_capture()
     st_launches, st = run_phase(
         "standin (pallas)", STANDIN, (1080, 1920, 3), 2, "pallas",
-        [st_drains, st_walks], DRAINS + ("walk_closest",), MXU)
+        [st_walks], ("walk_closest+inst", "walk_any+inst", "walk_closest"),
+        DRAINS + MXU)
     check_standin(st)
     del st
+    st_sizes = st_walks.sizes
+    for name in WALKS:
+        calls = sum(len(v) for k, v in st_sizes.items()
+                    if k.split("+")[0] == name)
+        if calls != st_launches[name]:
+            fail(f"standin: {name} counted {st_launches[name]} launches in "
+                 f"{calls} calls")
+    sd_cap = drain_capture()
+    sd_launches, sd = run_phase(
+        "standin DI (xla)", STANDIN_DI, (1080, 1920, 3), 2, "xla",
+        [sd_cap], DRAINS, WALKS + MXU)
+    check_standin(sd)
+    del sd
     mx_cap = mxu_capture()
     mx_launches, mx = run_phase(
-        "standin mxu (DI, xla)", MXU_ARGS, (1080, 1920, 3), 2, "xla",
+        "standin mxu (DI, xla)", STANDIN_DI, (1080, 1920, 3), 2, "xla",
         [mx_cap], MXU, DRAINS + WALKS, mt="mxu")
     check_standin(mx)
     del mx
     torch.cuda.empty_cache()
-    st_times = {name: check_drain(
-        name, st_drains.args[name],
-        "largest standin drain (instanced, object space)") for name in DRAINS}
-    st_times["walk_closest"] = check_walk(
-        "walk_closest", st_walks.args["walk_closest"],
-        "largest standin alpha-BVH traversal")
-    del st_drains, st_walks
-    times["mt_mxu"] = check_mxu(mx_cap.args["mt_mxu"],
+    st_times = {
+        "walk_closest+inst": check_walk(
+            "walk_closest", st_walks.args["walk_closest+inst"],
+            "largest standin instanced traversal"),
+        "walk_any+inst": check_walk(
+            "walk_any", st_walks.args["walk_any+inst"],
+            "largest standin instanced occlusion traversal"),
+        "walk_closest": check_walk(
+            "walk_closest", st_walks.args["walk_closest"],
+            "largest standin alpha-BVH traversal")}
+    del st_walks
+    sd_times = {name: check_drain(
+        name, sd_cap.args[name][0],
+        "largest standin DI drain (instanced, object space)")
+        for name in DRAINS}
+    del sd_cap
+    times["mt_mxu"] = check_mxu(mx_cap.args["mt_mxu"][0],
                                 "largest standin mxu drain")
     del mx_cap
     torch.cuda.empty_cache()
@@ -593,8 +652,11 @@ def main() -> None:
              for k in DRAINS]
             + [(k, "GI bistro_flat 1920x1080 pallas", gi_launches[k],
                 times[k]) for k in WALKS]
-            + [(k, "standin 1920x1080 pallas", st_launches[k], st_times[k])
-               for k in st_times]
+            + [(k.split("+")[0], "standin 1920x1080 pallas, "
+                + ("instanced BVH" if "+" in k else "alpha BVH"),
+                len(st_sizes[k]), st_times[k]) for k in st_times]
+            + [(k, "standin DI 1920x1080 xla", sd_launches[k], sd_times[k])
+               for k in DRAINS]
             + [(k, "standin DI 1920x1080 mxu", mx_launches[k], times[k])
                for k in MXU])
     line = {"kernels": [

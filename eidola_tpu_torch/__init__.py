@@ -23,7 +23,7 @@ tensor the wrapper runs its plain-torch version):
 - `mt_fused`, `mt_any_fused` (`csrc/bvh_fused.cu`): the leaf drains of
   the torch walk (`ops/bvh.py`), the default;
 - `walk_closest`, `walk_any` (`csrc/bvh_walk.cu`): the one-kernel walk
-  over flat BVHs under EIDOLA_TRAV=pallas;
+  over flat and instanced BVHs under EIDOLA_TRAV=pallas;
 - `mt_mxu` (`csrc/bvh_mxu.cu`): the per-event closest-hit drain under
   EIDOLA_MT=mxu.
 """

@@ -8,8 +8,8 @@ renders the default frame (ReSTIR DI + GI, a-trous denoise) on the card;
 `--device cpu` renders on the CPU instead, and nothing falls back from
 CUDA to the CPU.  `--no-indirect` / `--no-denoise` drop those stages.
 The alpha HitTest is on exactly when the scene has an alpha-tested
-material, as in the JAX app.  EIDOLA_TRAV=pallas traces every flat BVH
-through the one-kernel walk (ops/bvh_walk.py); EIDOLA_MT=mxu drains the
+material, as in the JAX app.  EIDOLA_TRAV=pallas traces every BVH, flat
+or instanced, through the one-kernel walk (ops/bvh_walk.py); EIDOLA_MT=mxu drains the
 torch walk's leaves with ops/bvh_mxu.py instead of the fused kernels.
 """
 from __future__ import annotations

@@ -8,12 +8,13 @@ output row holds its segment's prefix fold (a segment is a run of
 consecutive events of one sub-packet).
 
 - On a CUDA tensor the wrapper launches the hand-written kernel of
-  `csrc/bvh_fused.cu` (built with nvcc at first use) and counts the
-  launch in `LAUNCHES`.
+  `csrc/bvh_fused.cu` (built with nvcc at first use), which finds the
+  segment starts itself, and counts the launch in `LAUNCHES`.
 - On a CPU tensor it runs the plain-torch version (`mt_fused_ref`,
   `mt_any_fused_ref`), which computes the same arithmetic in the same
-  order: each dot product sums features 0..9 in turn, so with the kernel
-  built without FMA contraction the two agree bit for bit.
+  order: each dot product sums its nonzero coefficients' products in
+  feature order (`_dots_sparse`), so with the kernel built without FMA
+  contraction the two agree bit for bit.
 
 The table is always f32 here: the H100 has no bf16-only matrix path that
 the TPU's drain had to feed (eidola_tpu/ops/bvh_fused.py:79-98).
@@ -87,11 +88,29 @@ def _features(anchor_row, gox, goy, goz, gdx, gdy, gdz):
 
 
 def _dots(cm, feats, n):
-    """(CE, 4n, 128) = sum over features 0..9 in order (no reassociation)."""
+    """(CE, 4n, 128) = sum over features 0..9 in order (no reassociation):
+    the dense dot, which ops/bvh_mxu.py's per-event coefficients need."""
     acc = cm[:, 0, :, None] * feats[:, None, 0, :]
     for k in range(1, NFEAT):
         acc = acc + cm[:, k, :, None] * feats[:, None, k, :]
     return acc[:, 0:n], acc[:, n:2 * n], acc[:, 2 * n:3 * n], acc[:, 3 * n:]
+
+
+def _dots_sparse(cm, feats, n):
+    """(det, t_num, u_num, v_num), each (CE, n, 128), from the products
+    that can be nonzero in a table of build_leaf_tables_np: det over
+    features 3-5, t_num over 0-2 plus the constant row 9 (times the
+    feature 1, which is exact), u_num and v_num over 3-8; each summed in
+    feature order."""
+    def dot(block, rows):
+        c = cm[:, :, block * n:(block + 1) * n]
+        acc = c[:, rows[0], :, None] * feats[:, None, rows[0], :]
+        for k in rows[1:]:
+            acc = acc + c[:, k, :, None] * feats[:, None, k, :]
+        return acc
+
+    tn = dot(1, (0, 1, 2)) + cm[:, 9, n:2 * n, None]
+    return dot(0, (3, 4, 5)), tn, dot(2, range(3, 9)), dot(3, range(3, 9))
 
 
 def segment_starts(sp, valid):
@@ -186,7 +205,7 @@ def mt_fused_ref(cm_tab, anchor_row, dma_row, gleaf, sp, valid,
         e = slice(s, min(s + chunk, ce))
         feats = _features(anchor_row[e], gox[e], goy[e], goz[e],
                           gdx[e], gdy[e], gdz[e])
-        det, tn, un, vn = _dots(cm_tab[dma_row[e].long()], feats, n)
+        det, tn, un, vn = _dots_sparse(cm_tab[dma_row[e].long()], feats, n)
         ok = torch.abs(det) > 1e-12
         inv = torch.where(ok, 1.0 / det, 0.0)
         t, u, v = tn * inv, un * inv, vn * inv
@@ -238,9 +257,8 @@ def mt_fused(cm_tab, anchor_row, dma_row, gleaf, sp, valid,
     if cm_tab.device.type != "cuda":
         raise ValueError(f"mt_fused: unsupported device {cm_tab.device}")
     ce = gox.shape[0]
-    starts = _i32(segment_starts(sp, valid))
     args = [cm_tab.contiguous(), anchor_row.contiguous(), _i32(dma_row),
-            _i32(gleaf), _i32(valid), starts] + [p.contiguous() for p in planes]
+            _i32(gleaf), _i32(valid), _i32(sp)] + [p.contiguous() for p in planes]
     t = torch.empty((ce, LANES), dtype=torch.float32, device=gox.device)
     s = torch.empty((ce, LANES), dtype=torch.int32, device=gox.device)
     u = torch.empty_like(t)
@@ -267,7 +285,7 @@ def mt_any_fused_ref(cm_tab, anchor_row, dma_row, sp, valid,
         e = slice(s, min(s + chunk, ce))
         feats = _features(anchor_row[e], gox[e], goy[e], goz[e],
                           gdx[e], gdy[e], gdz[e])
-        det, tn, un, vn = _dots(cm_tab[dma_row[e].long()], feats, n)
+        det, tn, un, vn = _dots_sparse(cm_tab[dma_row[e].long()], feats, n)
         det2 = det * det
         ud, vd, td = un * det, vn * det, tn * det
         h = ((torch.abs(det) > 1e-12) & (ud >= 0.0) & (vd >= 0.0)
@@ -294,9 +312,8 @@ def mt_any_fused(cm_tab, anchor_row, dma_row, sp, valid,
     if cm_tab.device.type != "cuda":
         raise ValueError(f"mt_any_fused: unsupported device {cm_tab.device}")
     ce = gox.shape[0]
-    starts = _i32(segment_starts(sp, valid))
     args = [cm_tab.contiguous(), anchor_row.contiguous(), _i32(dma_row),
-            _i32(valid), starts] + [p.contiguous() for p in planes]
+            _i32(valid), _i32(sp)] + [p.contiguous() for p in planes]
     h = torch.empty((ce, LANES), dtype=torch.int32, device=gox.device)
     err = _lib().eidola_mt_any_fused(
         *[_ptr(a) for a in args], _ptr(h), ce, n_tris,

@@ -11,13 +11,21 @@ cross-product Moller-Trumbore over the leaf's rows `bvh.leaf_blocks`.
   launch the kernel of `csrc/bvh_walk.cu` (built with nvcc at first use)
   and count the launch in `LAUNCHES`; on a CPU tensor they run the plain
   version `walk_ref` with group=1.
+- `inst=(leaf_mesh_row, leaf_inst, inst_inv)` makes the table an
+  instanced BVH's grafted walk (ops/bvh_instanced.py): a drained leaf id
+  g reads the shared pool row leaf_mesh_row[g] and tests the rays moved
+  into the object space of instance leaf_inst[g], as the instanced drain
+  of ops/bvh.py:_traverse does; the slot keeps the global leaf id.  The
+  JAX kernel took flat BVHs only.
 - `walk_ref(..., group=G)` is the plain torch version.  G packets share
   one walk/drain decision, as the TPU's (8, 128) tile made the JAX kernel
   do: group=8 is that kernel's semantics, group=1 the CUDA kernel's (one
   block per packet).  The group changes only the order in which a
   packet's leaf events drain, hence only which hit wins an exact-t tie.
 - `closest_hit_walk` / `any_hit_walk` are the front doors, with the
-  post-processing of `_traverse_pallas` (bvh_pallas.py:286-315).
+  post-processing of `_traverse_pallas` (bvh_pallas.py:286-315); an
+  instanced slot resolves to inst_tri_base[instance] + the mesh-local
+  triangle.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import ctypes
 
 import torch
 
-from .bvh import _BIG, BVH, PACKET, HitRecord
+from .bvh import _BIG, PACKET, HitRecord, _to_object_space
 
 LQ = 4
 _CHUNK = 512     # packets per batch of walk_ref's vectorized triangle test
@@ -33,6 +41,8 @@ _CHUNK = 512     # packets per batch of walk_ref's vectorized triangle test
 # and one triangle test (the cross-product MT of csrc/bvh_walk.cu)
 WALK_FLOP = 25
 MT_FLOP = 53
+# an instanced event's move to object space: 18 products and 15 sums
+XFORM_FLOP = 33
 
 LAUNCHES = {"walk_closest": 0, "walk_any": 0}
 
@@ -69,12 +79,13 @@ def _inv(c):
 
 
 def walk_ref(walk, leaf_blocks, rays, any_hit: bool, max_steps: int,
-             group: int = 1, stats=None):
+             group: int = 1, stats=None, inst=None):
     """Plain torch traversal.  walk (N, 8) f32, leaf_blocks (L, n*12) f32,
     rays (8, P, 128) f32 with P a multiple of `group`.  Returns (t, slot,
     u, v) as (P, 128) planes (slot int32, -1 = no hit).  `stats`, an
     int32 (P, 2) tensor, receives each packet's walk steps and drained
-    leaf events."""
+    leaf events.  `inst`: (leaf_mesh_row (Lg,), leaf_inst (Lg,), inst_inv
+    (I, 12)) of an instanced BVH."""
     ox, oy, oz, dx, dy, dz, tmin, tmax = rays
     P = ox.shape[0]
     if P % group:
@@ -148,17 +159,24 @@ def walk_ref(walk, leaf_blocks, rays, any_hit: bool, max_steps: int,
             c = dr[s:s + _CHUNK]
             qcnt[c] -= 1
             leaf = queue[c].gather(1, qcnt[c][:, None])[:, 0]
-            e = tris[leaf]                                   # (C, n, 12)
-            col = lambda i: e[:, :, i:i + 1]
             a = lambda plane: plane[c][:, None, :]
-            cdx, cdy, cdz = a(dx), a(dy), a(dz)
+            cox, coy, coz, cdx, cdy, cdz = (a(ox), a(oy), a(oz), a(dx),
+                                            a(dy), a(dz))
+            if inst is None:
+                e = tris[leaf]                               # (C, n, 12)
+            else:
+                e = tris[inst[0][leaf].long()]
+                xf = inst[2][inst[1][leaf].long()][:, :, None]
+                cox, coy, coz, cdx, cdy, cdz = _to_object_space(
+                    xf, cox, coy, coz, cdx, cdy, cdz)
+            col = lambda i: e[:, :, i:i + 1]
             px = cdy * col(8) - cdz * col(7)
             py = cdz * col(6) - cdx * col(8)
             pz = cdx * col(7) - cdy * col(6)
             det = col(3) * px + col(4) * py + col(5) * pz
             ok = torch.abs(det) > 1e-12
             inv_det = torch.where(ok, 1.0 / det, 0.0)
-            tvx, tvy, tvz = a(ox) - col(0), a(oy) - col(1), a(oz) - col(2)
+            tvx, tvy, tvz = cox - col(0), coy - col(1), coz - col(2)
             uk = (tvx * px + tvy * py + tvz * pz) * inv_det
             qx = tvy * col(5) - tvz * col(4)
             qy = tvz * col(3) - tvx * col(5)
@@ -191,7 +209,7 @@ def walk_ref(walk, leaf_blocks, rays, any_hit: bool, max_steps: int,
     return t_best, slot.to(torch.int32), u, v
 
 
-def _check(name, walk, leaf_blocks, rays):
+def _check(name, walk, leaf_blocks, rays, inst):
     dev = walk.device
     if walk.dtype != torch.float32 or walk.dim() != 2 or walk.shape[1] != 8:
         raise ValueError(f"{name}: walk must be f32 (N, 8), got "
@@ -203,7 +221,19 @@ def _check(name, walk, leaf_blocks, rays):
             rays.shape[0] != 8 or rays.shape[2] != PACKET:
         raise ValueError(f"{name}: rays must be f32 (8, P, {PACKET}), got "
                          f"{tuple(rays.shape)} {rays.dtype}")
-    if leaf_blocks.device != dev or rays.device != dev:
+    others = [leaf_blocks, rays]
+    if inst is not None:
+        mesh_row, leaf_inst, inst_inv = inst
+        for a in (mesh_row, leaf_inst):
+            if a.dim() != 1 or a.shape != mesh_row.shape or \
+                    a.dtype not in (torch.int32, torch.int64):
+                raise ValueError(f"{name}: leaf_mesh_row and leaf_inst must "
+                                 f"be int (Lg,)")
+        if inst_inv.dtype != torch.float32 or inst_inv.dim() != 2 or \
+                inst_inv.shape[1] != 12:
+            raise ValueError(f"{name}: inst_inv must be f32 (I, 12)")
+        others += list(inst)
+    if any(a.device != dev for a in others):
         raise ValueError(f"{name}: all inputs must be on {dev}")
     if dev.type == "cuda" and leaf_blocks.shape[1] // 12 not in (8, 64):
         raise ValueError(f"{name}: the CUDA kernel is built for leaf sizes "
@@ -216,18 +246,18 @@ def _lib():
     lib = load("bvh_walk")
     if not getattr(lib, "_eidola_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.eidola_walk.argtypes = [P] * 8 + [I, I, I, I, P]
+        lib.eidola_walk.argtypes = [P, I] + [P] * 10 + [I, I, I, I, P]
         lib.eidola_walk.restype = I
         lib._eidola_typed = True
     return lib
 
 
-def _walk(name, walk, leaf_blocks, rays, max_steps, stats):
-    _check(name, walk, leaf_blocks, rays)
+def _walk(name, walk, leaf_blocks, rays, max_steps, stats, inst):
+    _check(name, walk, leaf_blocks, rays, inst)
     any_hit = name == "walk_any"
     if walk.device.type == "cpu":
         return walk_ref(walk, leaf_blocks, rays, any_hit, max_steps, group=1,
-                        stats=stats)
+                        stats=stats, inst=inst)
     if walk.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {walk.device}")
     P = rays.shape[1]
@@ -239,14 +269,19 @@ def _walk(name, walk, leaf_blocks, rays, max_steps, stats):
                          f"on {walk.device}")
     walk, leaf_blocks, rays = (a.contiguous() for a in
                                (walk, leaf_blocks, rays))
+    if inst is None:
+        inst = (None, None, None)
+    else:
+        inst = (inst[0].to(torch.int32).contiguous(),
+                inst[1].to(torch.int32).contiguous(), inst[2].contiguous())
     t = torch.empty((P, PACKET), dtype=torch.float32, device=walk.device)
     slot = torch.empty((P, PACKET), dtype=torch.int32, device=walk.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
+    ptr = lambda a: ctypes.c_void_p(None if a is None else a.data_ptr())
     err = _lib().eidola_walk(
-        ptr(walk), ptr(leaf_blocks), ptr(rays), ptr(t), ptr(slot), ptr(u),
-        ptr(v), ctypes.c_void_p(None if stats is None else stats.data_ptr()),
+        ptr(walk), walk.shape[0], ptr(leaf_blocks), *[ptr(a) for a in inst],
+        ptr(rays), ptr(t), ptr(slot), ptr(u), ptr(v), ptr(stats),
         P, leaf_blocks.shape[1] // 12, int(any_hit), int(max_steps),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
@@ -256,35 +291,53 @@ def _walk(name, walk, leaf_blocks, rays, max_steps, stats):
     return t, slot, u, v
 
 
-def walk_closest(walk, leaf_blocks, rays, max_steps: int, stats=None):
+def walk_closest(walk, leaf_blocks, rays, max_steps: int, stats=None,
+                 inst=None):
     """Closest hit of every ray: (t, slot, u, v) (P, 128) planes."""
-    return _walk("walk_closest", walk, leaf_blocks, rays, max_steps, stats)
+    return _walk("walk_closest", walk, leaf_blocks, rays, max_steps, stats,
+                 inst)
 
 
-def walk_any(walk, leaf_blocks, rays, max_steps: int, stats=None):
+def walk_any(walk, leaf_blocks, rays, max_steps: int, stats=None, inst=None):
     """Occlusion of every ray: slot >= 0 marks an occluded lane (its t is
     -1e30)."""
-    return _walk("walk_any", walk, leaf_blocks, rays, max_steps, stats)
+    return _walk("walk_any", walk, leaf_blocks, rays, max_steps, stats, inst)
 
 
-def _traverse_walk(bvh: BVH, o, d, t_min, t_max, any_hit: bool,
+def _traverse_walk(bvh, o, d, t_min, t_max, any_hit: bool,
                    max_steps: int) -> HitRecord:
+    """`bvh`: a BVH, or an InstancedBVH (told by its leaf_mesh_row)."""
     R = o.shape[0]
     rays = pack_rays(o, d, t_min, t_max)
     fn = walk_any if any_hit else walk_closest
+    instanced = hasattr(bvh, "leaf_mesh_row")
+    inst = (bvh.leaf_mesh_row, bvh.leaf_inst, bvh.inst_inv) if instanced \
+        else None
     t, slot, u, v = (a.reshape(-1)[:R] for a in
-                     fn(bvh.walk, bvh.leaf_blocks, rays, max_steps))
-    slot = slot.long()
-    tri = torch.where(slot >= 0, bvh.prim_id[slot.clamp(min=0)], -1)
+                     fn(bvh.walk, bvh.leaf_blocks, rays, max_steps,
+                        inst=inst))
+    hit = slot >= 0
+    slot = slot.long().clamp(min=0)
+    if instanced:
+        # global id = the instance's tri base + the mesh-local prim id
+        n = bvh.leaf_size
+        leaf_g, k = slot // n, slot % n
+        p = bvh.mesh_prim[bvh.leaf_mesh_row[leaf_g] * n + k]
+        tri = torch.where(hit & (p >= 0),
+                          p + bvh.inst_tri_base[bvh.leaf_inst[leaf_g]], -1)
+    else:
+        tri = torch.where(hit, bvh.prim_id[slot], -1)
     t = torch.where(tri >= 0, torch.abs(t), _BIG)
     return HitRecord(tri=tri, t=t, u=u, v=v)
 
 
-def closest_hit_walk(bvh: BVH, o, d, t_min, t_max, max_steps: int = 100_000):
-    """Drop-in for ops.bvh.closest_hit through the walk kernel."""
+def closest_hit_walk(bvh, o, d, t_min, t_max, max_steps: int = 100_000):
+    """Drop-in for ops.bvh.closest_hit (or closest_hit_instanced) through
+    the walk kernel."""
     return _traverse_walk(bvh, o, d, t_min, t_max, False, max_steps)
 
 
-def any_hit_walk(bvh: BVH, o, d, t_min, t_max, max_steps: int = 100_000):
-    """Drop-in for ops.bvh.any_hit through the walk kernel."""
+def any_hit_walk(bvh, o, d, t_min, t_max, max_steps: int = 100_000):
+    """Drop-in for ops.bvh.any_hit (or any_hit_instanced) through the walk
+    kernel."""
     return _traverse_walk(bvh, o, d, t_min, t_max, True, max_steps).tri >= 0

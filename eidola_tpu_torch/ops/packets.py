@@ -14,9 +14,10 @@ consecutive rays should be spatially coherent.
 
 `TRAV` selects the traversal every door uses, from EIDOLA_TRAV as in the
 JAX package: "xla" (default) is the torch walk of ops/bvh.py with its
-drain kernels, "pallas" the one-kernel walk of ops/bvh_walk.py.  An
-instanced BVH (ops/bvh_instanced.py) always takes the torch walk, as in
-the JAX package (packets.py:72-79): the walk kernel reads flat leaf rows.
+drain kernels, "pallas" the one-kernel walk of ops/bvh_walk.py, which
+takes flat and instanced BVHs alike (the JAX package's kernel reads flat
+leaf rows only and leaves an instanced BVH on its XLA walk,
+packets.py:72-79).
 """
 from __future__ import annotations
 
@@ -41,24 +42,20 @@ def _is_inst(bvh) -> bool:
     return hasattr(bvh, "leaf_mesh_row")
 
 
-def _use_pallas(bvh) -> bool:
-    return TRAV == "pallas" and not _is_inst(bvh)
-
-
 def closest_hit(bvh, o, d, t_min, t_max, max_steps: int = 100_000):
+    if TRAV == "pallas":
+        return _walk.closest_hit_walk(bvh, o, d, t_min, t_max, max_steps)
     if _is_inst(bvh):
         return _inst.closest_hit_instanced(bvh, o, d, t_min, t_max,
                                            max_steps)
-    if _use_pallas(bvh):
-        return _walk.closest_hit_walk(bvh, o, d, t_min, t_max, max_steps)
     return _bvh.closest_hit(bvh, o, d, t_min, t_max, max_steps=max_steps)
 
 
 def any_hit(bvh, o, d, t_min, t_max, max_steps: int = 100_000):
+    if TRAV == "pallas":
+        return _walk.any_hit_walk(bvh, o, d, t_min, t_max, max_steps)
     if _is_inst(bvh):
         return _inst.any_hit_instanced(bvh, o, d, t_min, t_max, max_steps)
-    if _use_pallas(bvh):
-        return _walk.any_hit_walk(bvh, o, d, t_min, t_max, max_steps)
     return _bvh.any_hit(bvh, o, d, t_min, t_max, max_steps=max_steps)
 
 

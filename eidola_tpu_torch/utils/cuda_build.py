@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -22,8 +23,11 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # -fmad=false: no FMA contraction, so kernels round every product and sum
 # like their plain torch versions (bitwise agreement); no fast math.
+# -Xptxas -v: each kernel's registers, spills and shared memory go to the
+# build's log (see ptxas_summary).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
 # every csrc/<name>.cu; chip_smoke.py builds them all at once
 CUDA_SOURCES = ("bvh_fused", "bvh_mxu", "bvh_walk")
 
@@ -50,6 +54,7 @@ class Build:
                                 f"lib{name}-{key.hexdigest()[:16]}.so")
         self.proc = None
         self.tmp = None
+        self.log = ""    # the compiler's output, once finished
 
     @property
     def built(self) -> bool:
@@ -72,6 +77,7 @@ class Build:
         if self.proc.returncode != 0:
             raise RuntimeError(f"{self.cmd_head[0]} failed building "
                                f"{self.name}:\n{log}")
+        self.log = log
         os.replace(self.tmp, self.out)
 
 
@@ -79,6 +85,23 @@ def cuda_build(name: str) -> Build:
     """The nvcc build of csrc/<name>.cu."""
     return Build(name, os.path.join(SRC_DIR, name + ".cu"),
                  [_nvcc(), *NVCC_FLAGS])
+
+
+def ptxas_summary(log: str) -> list[dict]:
+    """The kernels of an nvcc log made with -Xptxas -v: one dict per entry
+    function with its (mangled) name, registers, bytes of spill stores and
+    loads, and bytes of static shared memory."""
+    out = []
+    for m in re.finditer(
+            r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads.*?Used (\d+) registers([^\n]*)", log,
+            re.S):
+        smem = re.search(r"(\d+) bytes smem", m.group(5))
+        out.append({"kernel": m.group(1), "registers": int(m.group(4)),
+                    "spill_stores": int(m.group(2)),
+                    "spill_loads": int(m.group(3)),
+                    "smem": int(smem.group(1)) if smem else 0})
+    return out
 
 
 def build_together(builds: list[Build]) -> None:

@@ -7,9 +7,10 @@ so it runs on a machine with the card but no JAX:
 
 (`--noconftest`: the suite's conftest.py configures JAX.)  Built without
 FMA contraction, each kernel must agree with its plain version bit for
-bit, invalid tail rows included (mt_mxu: dead rays); the walk kernel against `walk_ref`
-with group=1 (its one-block-per-packet semantics), outputs and per-packet
-step and event counts alike.
+bit, invalid tail rows included (mt_mxu: dead rays); the walk kernel
+against `walk_ref` with group=1 (its one-block-per-packet semantics), on
+flat and instanced BVHs, outputs and per-packet step and event counts
+alike.
 """
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import torch
 
 from eidola_tpu_torch.ops import bvh as TB
 from eidola_tpu_torch.ops import bvh_fused as TF
+from eidola_tpu_torch.ops import bvh_instanced as TI
 from eidola_tpu_torch.ops import bvh_mxu as TM
 from eidola_tpu_torch.ops import bvh_walk as TW
 from eidola_tpu_torch.utils.drain_case import (make_case, mxu_args,
@@ -29,6 +31,12 @@ CASES = [
     (8, 6, [3, 14, 1, 9, 2, 5], 48, 0.0, 7),
     (64, 6, [3, 14, 1, 9, 2, 5], 48, 0.0, 8),
     (64, 512, random_runs(1000, 32, 9), 1024, 20.0, 9),
+    # many one-event segments: one block per event, no carry
+    (64, 256, [1] * 2000, 2048, 20.0, 10),
+    # 32-event segments (the queue's depth), an invalid tail, exact-t
+    # ties inside an event and across the first two
+    (64, 64, [32] * 30, 1024, 0.0, 11),
+    (8, 64, [32] * 30, 1024, 0.0, 12),
 ]
 
 
@@ -110,19 +118,58 @@ def _walk_case(dev, leaf_size, seed):
     return bvh, rays
 
 
+def _instanced_walk_case(dev, leaf_size, seed):
+    """Two clustered meshes under six instances (rotated, scaled 0.5-2,
+    one mirrored, translated), 2000 rays aimed into them (a third
+    shadow-length, 24 dead)."""
+    rng = np.random.default_rng(seed)
+    meshes = []
+    for n in (900, 500):
+        c = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        meshes.append(tuple(c + rng.normal(0, 0.2, (n, 3)).astype(np.float32)
+                            for _ in range(3)))
+    instances = []
+    for k in range(6):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        m = np.eye(4)
+        m[:3, :3] = q * rng.uniform(0.5, 2.0)
+        if k == 3:
+            m[:3, 0] *= -1.0
+        m[:3, 3] = rng.uniform(-4, 4, 3)
+        instances.append((k % 2, m))
+    bvh = TI.build_instanced_bvh(meshes, instances, device=dev,
+                                 leaf_size=leaf_size)
+    o = rng.uniform(-8, 8, (2000, 3)).astype(np.float32)
+    tgt = np.stack([m[:3, 3] for _, m in instances])[np.arange(2000) % 6]
+    d = (tgt + rng.uniform(-1, 1, (2000, 3))).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(np.arange(2000) % 3, 1e9, 6.0).astype(np.float32)
+    tmax[:24] = -1.0
+    rays = TW.pack_rays(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                        torch.full((2000,), 1e-4, device=dev),
+                        torch.from_numpy(tmax).to(dev))
+    return bvh, rays, (bvh.leaf_mesh_row, bvh.leaf_inst, bvh.inst_inv)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("instanced", [False, True], ids=["flat", "instanced"])
 @pytest.mark.parametrize("leaf_size", [8, 64])
 @pytest.mark.parametrize("name", ["walk_closest", "walk_any"])
-def test_walk_kernel_matches_plain(cuda, name, leaf_size):
-    bvh, rays = _walk_case(cuda, leaf_size, seed=leaf_size)
+def test_walk_kernel_matches_plain(cuda, name, leaf_size, instanced):
+    if instanced:
+        bvh, rays, inst = _instanced_walk_case(cuda, leaf_size,
+                                               seed=leaf_size + 1)
+    else:
+        bvh, rays = _walk_case(cuda, leaf_size, seed=leaf_size)
+        inst = None
     P = rays.shape[1]
     stats = torch.zeros((P, 2), dtype=torch.int32, device=cuda)
     ref_stats = torch.zeros_like(stats)
     before = TW.LAUNCHES[name]
     out = getattr(TW, name)(bvh.walk, bvh.leaf_blocks, rays, 100_000,
-                            stats=stats)
+                            stats=stats, inst=inst)
     ref = TW.walk_ref(bvh.walk, bvh.leaf_blocks, rays, name == "walk_any",
-                      100_000, group=1, stats=ref_stats)
+                      100_000, group=1, stats=ref_stats, inst=inst)
     torch.cuda.synchronize()
     assert TW.LAUNCHES[name] == before + 1
     assert 0 < int((out[1] >= 0).sum()) < out[1].numel()

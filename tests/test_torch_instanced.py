@@ -5,10 +5,21 @@ and emitter pdf) against the JAX package's.
 - `build_instanced_bvh`: every array bit for bit equal to JAX's, for two
   meshes under five instances (scaled, rotated, one mirrored), and for a
   subset build (the opaque half of a split).
-- Instanced closest and any hit through the packets front door (which
-  keeps an instanced BVH on the torch walk under EIDOLA_TRAV=pallas)
-  against JAX's instanced walk on the same BVH, and against the port's
-  flat build of the same triangles baked to world space.
+- Instanced closest and any hit through the packets front door under
+  the default traversal (the instanced torch walk) against JAX's
+  instanced walk on the same BVH, and against the port's flat build of
+  the same triangles baked to world space.
+- The same queries through the walk kernel's plain version with its
+  instanced drain (`walk_ref(inst=)`, where EIDOLA_TRAV=pallas sends an
+  instanced BVH) against JAX's instanced walk and the port's
+  `_traverse(inst=)`: triangle ids equal except at exact-t ties and the
+  drains' edge verdicts (ROADMAP C: the torch walk tests through the
+  coefficient table, the walk kernel with cross products), t within 1e-5
+  relative and u, v within 1e-4 absolute on the rays whose ids agree
+  (the bound this file already holds instanced u to; measured up to
+  3.2e-5 against JAX, whose object-space rays XLA evaluates in another
+  order, on instances translated by up to 5 units and scaled by 0.5-2);
+  group=1 against group=8 hit for hit.
 - `upload_scene_instanced`: every array of the scene bit for bit equal
   to JAX's (attribute pools, Instancing, lights, BVHs), for a scene with
   an emissive material and for a split scene (an instanced opaque half
@@ -42,6 +53,7 @@ from eidola_tpu.render.config import default_params as j_default_params
 from eidola_tpu_torch import interop
 from eidola_tpu_torch.ops import bvh as TB
 from eidola_tpu_torch.ops import bvh_instanced as TI
+from eidola_tpu_torch.ops import bvh_walk as TW
 from eidola_tpu_torch.ops import packets as TPK
 from eidola_tpu_torch.render import pathtrace as TP
 from eidola_tpu_torch.render import shade_state as TSS
@@ -164,12 +176,10 @@ def _rays(n=640, seed=5):
 
 def test_instanced_hits_match_jax_and_flat(built, monkeypatch):
     j, t = built
-    # the walk kernel reads flat leaf rows: under EIDOLA_TRAV=pallas an
-    # instanced BVH still takes the torch walk (JAX packets.py:72-79)
-    monkeypatch.setattr(TPK, "TRAV", "pallas")
-    assert TPK._is_inst(t) and not TPK._use_pallas(t)
-    flat_probe = TB.build_bvh(*MESHES[0], device=CPU, leaf_size=8)
-    assert TPK._use_pallas(flat_probe)
+    # the default traversal: the instanced torch walk of ops/bvh.py
+    monkeypatch.setattr(TPK, "TRAV", "xla")
+    monkeypatch.setattr(TW, "walk_ref", None)
+    assert TPK._is_inst(t)
     o, d, tmin, tmax = _rays()
     targs = [torch.from_numpy(a) for a in (o, d, tmin, tmax)]
     jr = JI.closest_hit_instanced(j, *[jnp.asarray(a) for a in
@@ -198,6 +208,84 @@ def test_instanced_hits_match_jax_and_flat(built, monkeypatch):
     assert 0 < jo.sum() < jo.size
     np.testing.assert_array_equal(to, jo)
     np.testing.assert_array_equal(TB.any_hit(flat, *targs).numpy(), jo)
+
+
+def _walk_planes(t, o, d, tmin, tmax, any_hit, group):
+    rays = TW.pack_rays(*(torch.from_numpy(a) for a in (o, d, tmin, tmax)),
+                        multiple=group * TW.PACKET)
+    out = TW.walk_ref(t.walk, t.leaf_blocks, rays, any_hit, 100_000,
+                      group=group,
+                      inst=(t.leaf_mesh_row, t.leaf_inst, t.inst_inv))
+    return [a.reshape(-1)[:o.shape[0]].numpy() for a in out]
+
+
+def test_walk_ref_instanced_matches_jax_and_torch_walk(built, monkeypatch):
+    """The walk kernel's instanced drain (plain version, reached through
+    the front door under EIDOLA_TRAV=pallas) against JAX's instanced walk
+    and the port's _traverse(inst=)."""
+    j, t = built
+    o, d, tmin, tmax = _rays()
+    targs = [torch.from_numpy(a) for a in (o, d, tmin, tmax)]
+    jargs = [jnp.asarray(a) for a in (o, d, tmin, tmax)]
+    calls = []
+    real = TW.walk_ref
+    monkeypatch.setattr(TW, "walk_ref", lambda *a, **k: calls.append(
+        k.get("inst") is not None) or real(*a, **k))
+    monkeypatch.setattr(TPK, "TRAV", "pallas")
+    wr = TPK.closest_hit(t, *targs)
+    wo = TPK.any_hit(t, *targs).numpy()
+    assert calls == [True, True]
+    jr = JI.closest_hit_instanced(j, *jargs)
+    xr = TB._traverse(t, *targs, False, 100_000, inst=t.inst_index)[0]
+    jtri, wtri = np.asarray(jr.tri), wr.tri.numpy()
+    hits = jtri >= 0
+    assert 0.1 < hits.mean() < 0.95, "degenerate rays"
+    # every instance, the mirrored one included, supplies winners
+    assert set(np.unique(t.inst_of_tri[torch.from_numpy(wtri[hits])]
+                         .numpy())) == set(range(len(INSTANCES)))
+    for name, ref in (("jax", jr), ("torch walk", xr)):
+        rtri = np.asarray(ref.tri)
+        np.testing.assert_array_equal(rtri >= 0, hits, err_msg=name)
+        same = hits & (wtri == rtri)
+        assert same.sum() >= 0.999 * hits.sum(), name
+        np.testing.assert_allclose(wr.t.numpy()[same],
+                                   np.asarray(ref.t)[same], rtol=1e-5,
+                                   err_msg=name)
+        for a, b in ((wr.u, ref.u), (wr.v, ref.v)):
+            np.testing.assert_allclose(a.numpy()[same], np.asarray(b)[same],
+                                       rtol=0, atol=1e-4, err_msg=name)
+        assert (wr.t.numpy()[~hits] == np.asarray(ref.t)[~hits]).all()
+    jo = np.asarray(JI.any_hit_instanced(j, *jargs))
+    assert 0 < jo.sum() < jo.size
+    np.testing.assert_array_equal(wo, jo)
+
+
+def test_walk_ref_instanced_group1_matches_group8(built):
+    _, t = built
+    o, d, tmin, tmax = _rays(n=1024, seed=6)
+    t8, s8, _, _ = _walk_planes(t, o, d, tmin, tmax, False, 8)
+    t1, s1, _, _ = _walk_planes(t, o, d, tmin, tmax, False, 1)
+    assert 0.1 < (s8 >= 0).mean() < 0.95
+    np.testing.assert_array_equal(s1 >= 0, s8 >= 0)
+    assert (s1 != s8).mean() <= 0.01
+    # the nearest t does not depend on the drain order
+    np.testing.assert_array_equal(t1, t8)
+    _, a8, _, _ = _walk_planes(t, o, d, tmin, tmax, True, 8)
+    _, a1, _, _ = _walk_planes(t, o, d, tmin, tmax, True, 1)
+    np.testing.assert_array_equal(a1 >= 0, a8 >= 0)
+
+
+def test_walk_wrapper_rejects_bad_instance_inputs(built):
+    _, t = built
+    o, d, tmin, tmax = _rays(n=128)
+    rays = TW.pack_rays(*(torch.from_numpy(a) for a in (o, d, tmin, tmax)))
+    with pytest.raises(ValueError):
+        TW.walk_closest(t.walk, t.leaf_blocks, rays, 100,
+                        inst=(t.leaf_mesh_row, t.leaf_inst[:-1], t.inst_inv))
+    with pytest.raises(ValueError):
+        TW.walk_closest(t.walk, t.leaf_blocks, rays, 100,
+                        inst=(t.leaf_mesh_row, t.leaf_inst,
+                              t.inst_inv[:, :9]))
 
 
 def _mesh(n=60, seed=5):

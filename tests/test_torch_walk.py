@@ -24,6 +24,7 @@ from eidola_tpu.ops.bvh_pallas import _run as j_run
 from eidola_tpu.ops.intersect import brute_force_closest
 from eidola_tpu_torch import interop
 from eidola_tpu_torch.ops import bvh as tb
+from eidola_tpu_torch.ops import bvh_instanced as TI
 from eidola_tpu_torch.ops import bvh_walk as W
 from eidola_tpu_torch.ops import packets as P
 from test_torch_bvh import SCENES, _random_rays, _random_tris
@@ -140,10 +141,28 @@ def test_front_doors_match_default_traversal_and_oracle(scene):
     assert torch.equal(occ_w, occ_x)
 
 
-def test_trav_switch_routes_front_doors(case, monkeypatch):
+def _small_instanced_bvh():
+    """Two random meshes under three instances (rotated, scaled,
+    translated), leaf 8."""
+    rng = np.random.default_rng(11)
+    meshes = [_random_tris(120, seed=12), _random_tris(80, seed=13)]
+    instances = []
+    for k, (mesh, scale) in enumerate([(0, 1.0), (1, 1.5), (0, 0.7)]):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        m = np.eye(4)
+        m[:3, :3] = q * scale
+        m[:3, 3] = [2.0 * k - 2.0, 0.0, 0.0]
+        instances.append((mesh, m))
+    return TI.build_instanced_bvh(meshes, instances,
+                                  device=torch.device("cpu"), leaf_size=8)
+
+
+@pytest.mark.parametrize("instanced", [False, True], ids=["flat", "instanced"])
+def test_trav_switch_routes_front_doors(case, monkeypatch, instanced):
     """EIDOLA_TRAV=pallas (packets.TRAV) sends the image doors through
-    the walk kernel's wrapper; the default sends them through ops/bvh."""
-    _, tbvh, _, _, _, _ = case
+    the walk kernel's wrapper, for a flat and for an instanced BVH (with
+    its instance tables); the default sends them through ops/bvh."""
+    tbvh = _small_instanced_bvh() if instanced else case[1]
     h, w = 16, 32
     rng = np.random.default_rng(3)
     o = torch.from_numpy(np.broadcast_to(np.float32([0.3, 0.2, 7.0]),
@@ -153,12 +172,12 @@ def test_trav_switch_routes_front_doors(case, monkeypatch):
     tmin, tmax = torch.full((h, w), 1e-4), torch.full((h, w), 1e9)
     calls = []
     real = W.walk_closest
-    monkeypatch.setattr(W, "walk_closest",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(W, "walk_closest", lambda *a, **k: calls.append(
+        k.get("inst") is not None) or real(*a, **k))
     default = P.closest_hit_img(tbvh, o, d, tmin, tmax)
     assert not calls
     monkeypatch.setattr(P, "TRAV", "pallas")
     rec = P.closest_hit_img(tbvh, o, d, tmin, tmax)
-    assert calls
+    assert calls == [instanced]
     assert (rec.tri >= 0).float().mean() > 0.05
     assert (rec.tri == default.tri).float().mean() >= 0.999
