@@ -42,10 +42,16 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    largest instanced and largest flat call apart);
 9. kernel phase: each kernel on those arguments (the frames' own shapes:
    leaf 64, the full bistro tables) against its plain torch version on
-   the card, bitwise, with both times from CUDA events; the walk kernels
-   also against walk_ref's per-packet step and event counts, which give
-   their bound; plus the drain kernels on a synthetic case with an
-   invalid tail and exact-t ties, which the frames do not hold;
+   the card, bitwise, with times from CUDA events: the whole wrapper
+   call, the kernel alone (its bare launch on arguments already
+   converted: `launcher` of its module) and the plain version; the walk
+   kernels also against walk_ref's per-packet step and event counts,
+   which give their bound; plus the drain kernels on a synthetic case
+   with an invalid tail and exact-t ties, and on one with drain_case's
+   edges (dets at the 1e-12 threshold and at 2^126, dead and all-hit
+   warps), which the frames do not hold; for mt_any_fused and mt_mxu
+   also what each call's data asks of the kernel (lanes alive, warp
+   steps taken, triangles past the vote after the u test);
 10. goldens on the card: cornell, punctual, textured, hdr and alpha (the
    HitTest on) at 64x64, max_depth=2, traversal_max_steps=1024, 4
    frames, through the walk kernel, each within 0.02 mean abs of
@@ -55,7 +61,8 @@ imports nothing of JAX and nothing of the JAX package, and in order:
 12. prints one JSON line with an entry per kernel and path (the
    bistro_flat DI and GI frames, the standin frame, the standin DI
    frames with the fused and the mxu drains): that phase's launches and
-   the kernel's error, times and bound on the phase's largest call;
+   the kernel's error, times (`ms` the wrapper call, `kernel_ms` the
+   kernel alone) and bound on the phase's largest call;
    then, last, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.
@@ -98,9 +105,7 @@ GOLDENS = {"alpha": "sunsky", "cornell": "sunsky", "hdr": "hdr",
 STANDIN_TRIS = (2.8e6, 3.0e6)   # 729 lots x (1,728 + 4 x ~560)
 # Moller-Trumbore as a dot of coefficients and ray features (build_cmat):
 # the products by the nonzero coefficients (det 3, t 4, u 6, v 6) and
-# their sums, plus the epilogue: what the fused drains compute.  mt_mxu
-# also multiplies the 21 zero coefficients of each triangle; the bound
-# does not count them.
+# their sums, plus the epilogue: what the drain kernels compute.
 MT_DOT_OPS = 19 + 15
 MT_EPI_OPS = 10
 
@@ -366,14 +371,18 @@ def check_drain(name, args, label) -> dict:
         fail(f"{name} ({label}): CUDA kernel differs from its plain version "
              f"(max abs err {err}); the tolerance is bitwise")
     ms = time_ms(lambda: kern(*args), 20)
+    kernel_ms = time_ms(F.launcher(name, *args)[0], 20)
     plain_ms = time_ms(lambda: ref(*args), 3)
     bound_ms, bound_by = drain_bound(name, args)
+    if name == "mt_any_fused":
+        any_work(args, label)
     print(f"{name} ({label}): {args[-2].shape[0]} events x 128 lanes, leaf "
           f"{args[-1]}, {args[0].shape[0]}-leaf table; bitwise equal to "
-          f"plain; cuda {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+          f"plain; cuda {ms:.4f} ms (kernel alone {kernel_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def check_mxu(args, label) -> dict:
@@ -390,15 +399,93 @@ def check_mxu(args, label) -> dict:
         fail(f"mt_mxu ({label}): CUDA kernel differs from its plain version "
              f"(max abs err {err}); the tolerance is bitwise")
     ms = time_ms(lambda: M.mt_mxu(*args), 20)
+    kernel_ms = time_ms(M.launcher(*args)[0], 20)
     plain_ms = time_ms(lambda: M.mt_mxu_ref(*args), 3)
     bound_ms, bound_by = mxu_bound(args)
+    mxu_work(args, label)
     hit = float((got[0] < 1e30).float().mean())
     print(f"mt_mxu ({label}): {args[0].shape[0]} events x 128 lanes, leaf "
           f"{args[1]}; hit lanes {hit:.3f}; bitwise equal to plain; cuda "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+          f"{ms:.4f} ms (kernel alone {kernel_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def any_work(args, label) -> None:
+    """What this call's data asks of mt_any_fused's flags launch
+    (csrc/bvh_fused.cu: any_flags_kernel with mt_tri4.cuh's any4), from
+    the plain arithmetic: the lanes alive at an event's start (t_lim >
+    t_min) and the warps they fill when packed; the (event, warp, group of
+    four triangles) steps a warp takes before all its lanes have hit or
+    are dead, and of the triangles those steps test, the share that some
+    lane passes the u test for (the rest stop at the vote)."""
+    import torch
+
+    from eidola_tpu_torch.ops import bvh_fused as F
+
+    cm_tab, anchor, dma_row, sp, valid, *planes = args[:-1]
+    n = args[-1]
+    ce, q = planes[0].shape[0], n // 4
+    steps = past_vote = alive = warps = 0
+    for s in range(0, ce, 512):
+        e = slice(s, min(s + 512, ce))
+        ox, oy, oz, dx, dy, dz, tmin, tlim = (p[e] for p in planes)
+        ok = (valid[e] != 0)[:, None]
+        feats = F._features(anchor[e], ox, oy, oz, dx, dy, dz)
+        det, tn, un, vn = F._dots_sparse(cm_tab[dma_row[e].long()], feats, n)
+        det2 = det * det
+        ud, vd, td = un * det, vn * det, tn * det
+        pre = (torch.abs(det) > 1e-12) & (ud >= 0.0) & (ud <= det2)
+        hit = (pre & (vd >= 0.0) & (ud + vd <= det2)
+               & (td > tmin[:, None] * det2) & (td < tlim[:, None] * det2)
+               & ok[:, :, None])
+        dead = ~(tlim > tmin) | ~ok                               # (E, 128)
+        # a lane is done after group g when it hit in a group <= g
+        done = (hit.reshape(-1, q, 4, 128).any(2).cumsum(1) > 0) | dead[:, None]
+        live = ~torch.cat([dead[:, None], done[:, :-1]], 1)     # at g's start
+        tested = live.reshape(-1, q, 4, 32).any(-1) & ok[:, :, None]
+        pre_w = (pre.reshape(-1, q, 4, 128)
+                 & live[:, :, None]).reshape(-1, q, 4, 4, 32).any(-1)
+        steps += int(tested.sum())
+        past_vote += int((pre_w & tested[:, :, None]).sum())
+        n_alive = (~dead).sum(1)
+        alive += int(n_alive.sum())
+        warps += int(((n_alive + 31) // 32).sum())
+    print(f"work mt_any_fused ({label}): {ce} events; {alive} of {ce * 128} "
+          f"lanes alive at an event's start ({alive / (ce * 128):.4f}), "
+          f"{warps} of {ce * 4} warps when packed ({warps / (ce * 4):.4f}); "
+          f"{steps} of {ce * 4 * q} (event, warp, group of four) steps taken "
+          f"({steps / (ce * 4 * q):.4f}); of the {4 * steps} triangles they "
+          f"test, {past_vote} ({past_vote / max(4 * steps, 1):.4f}) pass a "
+          f"lane's u test", flush=True)
+
+
+def mxu_work(args, label) -> None:
+    """The share of (event, warp, triangle) that pass mt_mxu's vote after
+    the u test (a live lane with |det| > 1e-12 and 0 <= u <= 1)."""
+    import torch
+
+    from eidola_tpu_torch.ops import bvh_fused as F, bvh_mxu as M
+
+    row, n, *planes = args
+    ce = row.shape[0]
+    past_vote = 0
+    for s in range(0, ce, 2048):
+        e = slice(s, min(s + 2048, ce))
+        ox, oy, oz, dx, dy, dz, tmin, tlim = (p[e] for p in planes)
+        cm, anchor = M.build_cmat(row[e], n)
+        feats = F._features(anchor, ox, oy, oz, dx, dy, dz)
+        det, _, un, _ = F._dots_sparse(cm.transpose(1, 2), feats, n)
+        ok = torch.abs(det) > 1e-12
+        u = un * torch.where(ok, 1.0 / det, 0.0)
+        pre = ok & (u >= 0.0) & (u <= 1.0) & (tlim > tmin)[:, None]
+        past_vote += int(pre.reshape(pre.shape[0], n, 4, 32).any(-1).sum())
+    total = ce * n * 4
+    print(f"work mt_mxu ({label}): {ce} events; {past_vote} of {total} "
+          f"(event, warp, triangle) pass the vote ({past_vote / total:.4f})",
+          flush=True)
 
 
 def check_walk(name, call, label) -> dict:
@@ -429,6 +516,8 @@ def check_walk(name, call, label) -> dict:
              f"{torch.equal(stats, ref_stats)}); the tolerance is bitwise")
     ms = time_ms(lambda: kern(walk, leaf_blocks, rays, max_steps,
                               inst=inst), 5)
+    kernel_ms = time_ms(W.launcher(name, walk, leaf_blocks, rays, max_steps,
+                                   inst=inst)[0], 5)
     plain_ms = time_ms(lambda: W.walk_ref(walk, leaf_blocks, rays, any_hit,
                                           max_steps, group=1, inst=inst), 1)
     bound_ms, bound_by = walk_bound(walk, leaf_blocks, rays, stats, inst)
@@ -444,29 +533,33 @@ def check_walk(name, call, label) -> dict:
           f"{int(s[:, 0].sum())} (mean {float(s[:, 0].mean()):.1f}, max "
           f"{int(s[:, 0].max())} a packet), leaf events {int(s[:, 1].sum())}"
           f" (mean {float(s[:, 1].mean()):.1f}); hit lanes {hit:.3f}; cuda "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (first plain run "
-          f"{ref_s:.1f} s), bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+          f"{ms:.4f} ms (kernel alone {kernel_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms (first plain run {ref_s:.1f} s), bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def synthetic_phase(dev) -> None:
-    """An extra case the frames do not give: runs of 1-32 events of random
-    sub-packets with an invalid tail and exact-t ties (utils/drain_case)."""
+    """Extra cases the frames do not give (utils/drain_case): runs of 1-32
+    events of random sub-packets with an invalid tail and exact-t ties;
+    then the same shape of runs with the edges (dets at the 1e-12
+    threshold and 2^126, dead and all-hit warps, dead events)."""
     from eidola_tpu_torch.utils.drain_case import (make_case, mxu_args,
                                                    random_runs, torch_args)
 
-    n, ce, leaves = 64, 4096, 45056
-    case = make_case(n, leaves, random_runs(ce - 96, 32, 1), ce, seed=2,
-                     spread=60.0)
-    label = f"synthetic, {ce - case['n_valid']} invalid tail rows"
-    for name in DRAINS:
-        args = (*torch_args(case, dev, name == "mt_fused"), n)
-        check_drain(name, args, label)
-        del args
-    row, *planes = mxu_args(case, dev)
-    check_mxu((row, n, *planes), label + " (dead rays)")
+    n, ce = 64, 4096
+    for leaves, edge, seed in ((45056, False, 2), (4096, True, 3)):
+        case = make_case(n, leaves, random_runs(ce - 96, 32, seed - 1), ce,
+                         seed=seed, spread=0.0 if edge else 60.0, edge=edge)
+        label = (f"synthetic{', edges' if edge else ''}, "
+                 f"{ce - case['n_valid']} invalid tail rows")
+        for name in DRAINS:
+            args = (*torch_args(case, dev, name == "mt_fused"), n)
+            check_drain(name, args, label)
+            del args
+        row, *planes = mxu_args(case, dev)
+        check_mxu((row, n, *planes), label + " (dead rays)")
 
 
 def golden_phase() -> None:

@@ -19,122 +19,136 @@
 // epilogue (~44 f32 operations), against ~9 KB per event in and out (the
 // 3 KB leaf row at n = 64, 8 ray planes in, 4 planes out).  At n = 64
 // that is ~39 operations per byte, twice the H100's f32 ridge
-// (67 TFLOP/s / 3.35 TB/s = 20): it is operations-bound.  This kernel
-// does 4 full dots of 10 products and 9 sums (~90 operations, zero
-// coefficients included, and without FMA contraction each its own
-// instruction), about twice what the bound counts.
+// (67 TFLOP/s / 3.35 TB/s = 20): it is operations-bound, and built
+// without FMA contraction each product and sum is its own instruction.
 //
-// Design (simple and right first; speed is later work):
-//  - One 128-thread block per event, one thread per lane.  The TPU
-//    kernel's (CE, 4n, 16) coefficient and (CE, 16, 128) feature tensors
-//    are never written to device memory: the block builds its event's
-//    4n x 10 used coefficients in shared memory from the leaf row (10 KB
-//    at n = 64, one triangle per thread), and each thread forms its
-//    lane's 10 features in registers.
-//  - Each thread loops over the n triangles with the epilogue and a
-//    strict-< running minimum from +inf, which keeps the lowest index
-//    attaining the minimum, as the Pallas kernel's iota-min does.
-//  - Every dot sums features 0..9 in order, zero coefficients included;
-//    built with -fmad=false and no fast math, and t = tn * (1/det), so
-//    every product and sum rounds like the plain torch version
-//    (ops/bvh_mxu.py:mt_mxu_ref) and the two agree bit for bit.
+// Design (the closest-hit drain's, mt_tri4.cuh, without the fold):
+//  - A 128-thread block (one thread per lane) takes a fixed run of
+//    consecutive events.  The TPU kernel's (CE, 4n, 16) coefficient and
+//    (CE, 16, 128) feature tensors are never written to device memory:
+//    for each event the block builds the 19 nonzero coefficient rows of
+//    its n triangles (build_cmat's formulas, one triangle a thread) into
+//    shared memory in mt_tri4.cuh's staged layout, and each thread forms
+//    its lane's features in registers.
+//  - Pipelined over the block's events with one barrier each: event
+//    r + 2's leaf row starts its cp.async and event r + 1's rays load
+//    into registers while event r is tested; right after its own test a
+//    thread builds its share of event r + 1's coefficients into the other
+//    buffer.
+//  - Four triangles at a time from float4 reads (one 16-byte broadcast
+//    load per coefficient row and four triangles), the reciprocals after
+//    one warp-uniform range check (rcp_in_range), a warp vote after the
+//    u test that skips a triangle no lane can hit; a dead lane
+//    (t_lim <= t_min) joins no vote.  A miss keeps (1e30, 0, 0, 0), the
+//    t test is strict (t < t_lim), the strict-< minimum keeps the lowest
+//    k, as the Pallas kernel's iota-min does.
+//  - Every dot sums its nonzero products in feature order; built with
+//    -fmad=false and no fast math, and t = tn * (1/det), so every product
+//    and sum rounds like the plain torch version (ops/bvh_mxu.py:
+//    mt_mxu_ref) and the two agree bit for bit.
+//
+// Times (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py, the whole wrapper
+// call): 1.12 ms on the largest drain of a 1080p bistro_standin DI frame
+// (85,475 events, n = 64; 14% of (event, warp, triangle) pass the vote),
+// against 2.59 ms for the one-event-a-block kernel with dense dots and an
+// IEEE division per triangle that this replaced, 1.25 ms for mt_fused on
+// the same events, and a bound of 0.46 ms.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "mt_tri4.cuh"
 
-#define LANES 128
-#define NFEAT 10
-#define BIG 1e30f
-
-struct Rays {
-    const float *ox, *oy, *oz, *dx, *dy, *dz, *tmin, *tlim;
-};
-
-__device__ __forceinline__ void put(float* c, float f0, float f1, float f2,
-                                    float f3, float f4, float f5, float f6,
-                                    float f7, float f8, float f9) {
-    c[0] = f0; c[1] = f1; c[2] = f2; c[3] = f3; c[4] = f4;
-    c[5] = f5; c[6] = f6; c[7] = f7; c[8] = f8; c[9] = f9;
+// events a block takes, by drain size: runs of up to MXU_EVENTS for a
+// large drain, one event a block for a small one so that it still spreads
+// over the card (132 SMs x 4 blocks, 8 waves)
+#define MXU_EVENTS 8
+static int events_per_block(int ce) {
+    const int c = ce / (132 * 4 * 8);
+    return c < 1 ? 1 : (c > MXU_EVENTS ? MXU_EVENTS : c);
 }
 
-__device__ __forceinline__ float dot10(const float* c, const float* f) {
-    float acc = c[0] * f[0];
-#pragma unroll
-    for (int j = 1; j < NFEAT; ++j) acc = acc + c[j] * f[j];
-    return acc;
-}
-
-// coefficient column (block, k) at cm[(block * N + k) * NFEAT]
+// start the copy of event e's leaf row (N x 12 floats) into buf
 template <int N>
-__global__ void __launch_bounds__(LANES)
+__device__ __forceinline__ void stage_row(float* buf, const float* row,
+                                          int e) {
+    const float* src = row + (size_t)e * N * 12;
+    for (int c = threadIdx.x; c < N * 3; c += LANES)
+        cp_async16(buf + c * 4, src + c * 4);
+    cp_async_commit();
+}
+
+// build_cmat's 19 nonzero coefficients of triangle k (< N) of a staged
+// leaf row, into mt_tri4.cuh's staged layout
+template <int N>
+__device__ __forceinline__ void build_tri(float* cm, const float* tri,
+                                          int k) {
+    const float* p = tri + k * 12;
+    const float v0x = p[0] - tri[0], v0y = p[1] - tri[1];
+    const float v0z = p[2] - tri[2];
+    const float e1x = p[3], e1y = p[4], e1z = p[5];
+    const float e2x = p[6], e2y = p[7], e2z = p[8];
+    const float nx = e1y * e2z - e1z * e2y;
+    const float ny = e1z * e2x - e1x * e2z;
+    const float nz = e1x * e2y - e1y * e2x;
+    float* c = cm + k;
+    c[0 * N] = -nx;  c[1 * N] = -ny;  c[2 * N] = -nz;
+    c[3 * N] = nx;   c[4 * N] = ny;   c[5 * N] = nz;
+    c[6 * N] = -((v0x * nx + v0y * ny) + v0z * nz);
+    c[7 * N] = v0y * e2z - v0z * e2y;     // (v0 - a) x e2
+    c[8 * N] = v0z * e2x - v0x * e2z;
+    c[9 * N] = v0x * e2y - v0y * e2x;
+    c[10 * N] = e2x;  c[11 * N] = e2y;  c[12 * N] = e2z;
+    c[13 * N] = e1y * v0z - e1z * v0y;    // e1 x (v0 - a)
+    c[14 * N] = e1z * v0x - e1x * v0z;
+    c[15 * N] = e1x * v0y - e1y * v0x;
+    c[16 * N] = -e1x;  c[17 * N] = -e1y;  c[18 * N] = -e1z;
+}
+
+template <int N>
+__global__ void __launch_bounds__(LANES, 4)
 mt_mxu_kernel(const float* __restrict__ row, Rays R,
               float* __restrict__ t_out, int* __restrict__ k_out,
-              float* __restrict__ u_out, float* __restrict__ v_out) {
-    __shared__ float cm[4 * N * NFEAT];
-    const int e = blockIdx.x;
-    const float* tri = row + (size_t)e * N * 12;
-    const float ax = tri[0], ay = tri[1], az = tri[2];
-    for (int k = threadIdx.x; k < N; k += LANES) {
-        const float* p = tri + k * 12;
-        const float v0x = p[0] - ax, v0y = p[1] - ay, v0z = p[2] - az;
-        const float e1x = p[3], e1y = p[4], e1z = p[5];
-        const float e2x = p[6], e2y = p[7], e2z = p[8];
-        const float nx = e1y * e2z - e1z * e2y;
-        const float ny = e1z * e2x - e1x * e2z;
-        const float nz = e1x * e2y - e1y * e2x;
-        const float ct = -((v0x * nx + v0y * ny) + v0z * nz);
-        const float ux = v0y * e2z - v0z * e2y;     // (v0 - a) x e2
-        const float uy = v0z * e2x - v0x * e2z;
-        const float uz = v0x * e2y - v0y * e2x;
-        const float wx = e1y * v0z - e1z * v0y;     // e1 x (v0 - a)
-        const float wy = e1z * v0x - e1x * v0z;
-        const float wz = e1x * v0y - e1y * v0x;
-        put(cm + (0 * N + k) * NFEAT, 0.f, 0.f, 0.f, -nx, -ny, -nz,
-            0.f, 0.f, 0.f, 0.f);
-        put(cm + (1 * N + k) * NFEAT, nx, ny, nz, 0.f, 0.f, 0.f,
-            0.f, 0.f, 0.f, ct);
-        put(cm + (2 * N + k) * NFEAT, 0.f, 0.f, 0.f, ux, uy, uz,
-            e2x, e2y, e2z, 0.f);
-        put(cm + (3 * N + k) * NFEAT, 0.f, 0.f, 0.f, wx, wy, wz,
-            -e1x, -e1y, -e1z, 0.f);
-    }
+              float* __restrict__ u_out, float* __restrict__ v_out,
+              int ce, int per_block) {
+    __shared__ __align__(16) float raw[2][N * 12];
+    __shared__ __align__(16) float cm[2][NCOEF * N];
+    int e = blockIdx.x * per_block;
+    const int e1 = min(ce, e + per_block);
+
+    stage_row<N>(raw[0], row, e);
+    if (e + 1 < e1) stage_row<N>(raw[1], row, e + 1);
+    cp_async_wait_all();
     __syncthreads();
+    if (threadIdx.x < N) build_tri<N>(cm[0], raw[0], threadIdx.x);
+    Event ev = load_event(R, (size_t)e * LANES + threadIdx.x, raw[0][0],
+                          raw[0][1], raw[0][2]);
 
-    const size_t off = (size_t)e * LANES + threadIdx.x;
-    const float ox = R.ox[off] - ax, oy = R.oy[off] - ay, oz = R.oz[off] - az;
-    const float dx = R.dx[off], dy = R.dy[off], dz = R.dz[off];
-    float f[NFEAT];
-    f[0] = ox; f[1] = oy; f[2] = oz;
-    f[3] = dx; f[4] = dy; f[5] = dz;
-    f[6] = oy * dz - oz * dy;
-    f[7] = oz * dx - ox * dz;
-    f[8] = ox * dy - oy * dx;
-    f[9] = 1.0f;
-    const float tmin = R.tmin[off];
-    const float tlim = R.tlim[off];
-
-    float tb = INFINITY, ub = 0.f, vb = 0.f;
-    int kb = 0;
-#pragma unroll 2
-    for (int k = 0; k < N; ++k) {
-        const float det = dot10(cm + (0 * N + k) * NFEAT, f);
-        const float tn = dot10(cm + (1 * N + k) * NFEAT, f);
-        const float un = dot10(cm + (2 * N + k) * NFEAT, f);
-        const float vn = dot10(cm + (3 * N + k) * NFEAT, f);
-        const bool ok = fabsf(det) > 1e-12f;
-        const float inv = ok ? 1.0f / det : 0.0f;
-        const float t = tn * inv, u = un * inv, v = vn * inv;
-        const bool hit = ok && u >= 0.f && v >= 0.f && u + v <= 1.0f &&
-                         t > tmin && t < tlim;
-        const float tm = hit ? t : BIG;
-        if (tm < tb) { tb = tm; kb = k; ub = u; vb = v; }
+    for (int b = 0;; ++e, b ^= 1) {
+        // cm[b] is built and raw[b ^ 1] holds leaf e + 1 (everyone's
+        // copies have landed); raw[b] was read by cm[b]'s build, and
+        // nobody reads cm[b ^ 1] any more
+        cp_async_wait_all();
+        __syncthreads();
+        const bool more = e + 1 < e1;
+        Event nx = ev;
+        if (more) {
+            if (e + 2 < e1) stage_row<N>(raw[b], row, e + 2);
+            const float* a = raw[b ^ 1];
+            nx = load_event(R, (size_t)(e + 1) * LANES + threadIdx.x, a[0],
+                            a[1], a[2]);
+        }
+        const bool alive = ev.tlim > ev.tmin;
+        Best best{BIG, 0.f, 0.f, 0};
+#pragma unroll 1
+        for (int g = 0; g < N / 4; ++g)
+            closest4<MT_STRICT, N>(cm[b], g, ev, ev.tlim, true, alive, best);
+        const size_t off = (size_t)e * LANES + threadIdx.x;
+        t_out[off] = best.t;
+        k_out[off] = best.k;
+        u_out[off] = best.u;
+        v_out[off] = best.v;
+        if (!more) break;
+        if (threadIdx.x < N) build_tri<N>(cm[b ^ 1], raw[b ^ 1], threadIdx.x);
+        ev = nx;
     }
-    const bool miss = tb >= BIG;
-    t_out[off] = tb;
-    k_out[off] = miss ? 0 : kb;
-    u_out[off] = miss ? 0.f : ub;
-    v_out[off] = miss ? 0.f : vb;
 }
 
 extern "C" {
@@ -147,12 +161,14 @@ int eidola_mt_mxu(const float* row, const float* ox, const float* oy,
     if (ce <= 0) return 0;
     Rays R{ox, oy, oz, dx, dy, dz, tmin, tlim};
     cudaStream_t s = (cudaStream_t)stream;
+    const int per = events_per_block(ce);
+    const int grid = (ce + per - 1) / per;
     if (n == 64)
-        mt_mxu_kernel<64><<<ce, LANES, 0, s>>>(row, R, t_out, k_out, u_out,
-                                               v_out);
+        mt_mxu_kernel<64><<<grid, LANES, 0, s>>>(row, R, t_out, k_out, u_out,
+                                                 v_out, ce, per);
     else if (n == 8)
-        mt_mxu_kernel<8><<<ce, LANES, 0, s>>>(row, R, t_out, k_out, u_out,
-                                              v_out);
+        mt_mxu_kernel<8><<<grid, LANES, 0, s>>>(row, R, t_out, k_out, u_out,
+                                                v_out, ce, per);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();

@@ -7,14 +7,19 @@ per-leaf coefficient table, and fold the results per sub-packet: every
 output row holds its segment's prefix fold (a segment is a run of
 consecutive events of one sub-packet).
 
-- On a CUDA tensor the wrapper launches the hand-written kernel of
-  `csrc/bvh_fused.cu` (built with nvcc at first use), which finds the
-  segment starts itself, and counts the launch in `LAUNCHES`.
+- On a CUDA tensor the wrapper launches the hand-written kernels of
+  `csrc/bvh_fused.cu` (built with nvcc at first use), which find the
+  segment starts themselves, and counts the call in `LAUNCHES`.
+  `mt_any_fused` is two launches: each event's own flags, then the
+  segmented prefix OR in place; one call counts once.
 - On a CPU tensor it runs the plain-torch version (`mt_fused_ref`,
-  `mt_any_fused_ref`), which computes the same arithmetic in the same
-  order: each dot product sums its nonzero coefficients' products in
-  feature order (`_dots_sparse`), so with the kernel built without FMA
-  contraction the two agree bit for bit.
+  `mt_any_fused_ref` = `segment_or_ref(any_flags_ref(...))`), which
+  computes the same arithmetic in the same order: each dot product sums
+  its nonzero coefficients' products in feature order (`_dots_sparse`),
+  so with the kernel built without FMA contraction the two agree bit for
+  bit.
+- `launcher` gives the bare launch of a kernel on a call's arguments,
+  already converted, which chip_smoke.py times alone.
 
 The table is always f32 here: the H100 has no bf16-only matrix path that
 the TPU's drain had to feed (eidola_tpu/ops/bvh_fused.py:79-98).
@@ -87,21 +92,13 @@ def _features(anchor_row, gox, goy, goz, gdx, gdy, gdz):
                         torch.ones_like(ox)], dim=1)
 
 
-def _dots(cm, feats, n):
-    """(CE, 4n, 128) = sum over features 0..9 in order (no reassociation):
-    the dense dot, which ops/bvh_mxu.py's per-event coefficients need."""
-    acc = cm[:, 0, :, None] * feats[:, None, 0, :]
-    for k in range(1, NFEAT):
-        acc = acc + cm[:, k, :, None] * feats[:, None, k, :]
-    return acc[:, 0:n], acc[:, n:2 * n], acc[:, 2 * n:3 * n], acc[:, 3 * n:]
-
-
 def _dots_sparse(cm, feats, n):
     """(det, t_num, u_num, v_num), each (CE, n, 128), from the products
-    that can be nonzero in a table of build_leaf_tables_np: det over
-    features 3-5, t_num over 0-2 plus the constant row 9 (times the
-    feature 1, which is exact), u_num and v_num over 3-8; each summed in
-    feature order."""
+    that can be nonzero in a table of build_leaf_tables_np (or a
+    transposed ops/bvh_mxu.build_cmat): det over features 3-5, t_num
+    over 0-2 plus the constant row 9 (times the feature 1, which is
+    exact), u_num and v_num over 3-8; each summed in feature order, as
+    csrc/mt_tri4.cuh does."""
     def dot(block, rows):
         c = cm[:, :, block * n:(block + 1) * n]
         acc = c[:, rows[0], :, None] * feats[:, None, rows[0], :]
@@ -171,8 +168,10 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.eidola_mt_fused.argtypes = [P] * 18 + [I, I, P]
         lib.eidola_mt_fused.restype = I
-        lib.eidola_mt_any_fused.argtypes = [P] * 14 + [I, I, P]
-        lib.eidola_mt_any_fused.restype = I
+        lib.eidola_any_flags.argtypes = [P] * 13 + [I, I, P]
+        lib.eidola_any_flags.restype = I
+        lib.eidola_segment_or.argtypes = [P] * 3 + [I, P]
+        lib.eidola_segment_or.restype = I
         lib._eidola_typed = True
     return lib
 
@@ -180,6 +179,47 @@ def _lib():
 def _raise_on(err, name):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def launcher(name: str, *args):
+    """(launch, outputs) for a CUDA call of `name` ("mt_fused" or
+    "mt_any_fused") with the wrapper's arguments `args` (n_tris last):
+    the inputs converted once and the outputs allocated; `launch()` only
+    launches the kernel(s) on the current stream into those outputs (it
+    does not count).  The wrapper calls it once; chip_smoke.py times it
+    alone."""
+    lib = _lib()
+    n_tris = args[-1]
+    cm_tab, anchor_row, *rest = args[:-1]
+    ints, planes = rest[:-8], rest[-8:]
+    ce = planes[0].shape[0]
+    dev = planes[0].device
+    ins = ([cm_tab.contiguous(), anchor_row.contiguous()]
+           + [_i32(a) for a in ints] + [p.contiguous() for p in planes])
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if name == "mt_fused":
+        cm, anchor, dma_row, gleaf, sp, valid = ins[:6]
+        t = torch.empty((ce, LANES), dtype=torch.float32, device=dev)
+        outs = (t, torch.empty((ce, LANES), dtype=torch.int32, device=dev),
+                torch.empty_like(t), torch.empty_like(t))
+        ptrs = [_ptr(a) for a in (cm, anchor, dma_row, gleaf, valid, sp,
+                                  *ins[6:], *outs)]
+
+        def launch(_alive=(ins, outs)):   # the tensors behind `ptrs`
+            _raise_on(lib.eidola_mt_fused(*ptrs, ce, n_tris, stream), name)
+    elif name == "mt_any_fused":
+        cm, anchor, dma_row, sp, valid = ins[:5]
+        outs = (torch.empty((ce, LANES), dtype=torch.int32, device=dev),)
+        flags = [_ptr(a) for a in (cm, anchor, dma_row, valid, *ins[5:],
+                                   *outs)]
+        seg = [_ptr(a) for a in (valid, sp, *outs)]
+
+        def launch(_alive=(ins, outs)):
+            _raise_on(lib.eidola_any_flags(*flags, ce, n_tris, stream), name)
+            _raise_on(lib.eidola_segment_or(*seg, ce, stream), name)
+    else:
+        raise ValueError(f"no drain kernel {name!r}")
+    return launch, outs
 
 
 # ------------------------------------------------------------- closest hit
@@ -256,28 +296,22 @@ def mt_fused(cm_tab, anchor_row, dma_row, gleaf, sp, valid,
                             *planes, n_tris)
     if cm_tab.device.type != "cuda":
         raise ValueError(f"mt_fused: unsupported device {cm_tab.device}")
-    ce = gox.shape[0]
-    args = [cm_tab.contiguous(), anchor_row.contiguous(), _i32(dma_row),
-            _i32(gleaf), _i32(valid), _i32(sp)] + [p.contiguous() for p in planes]
-    t = torch.empty((ce, LANES), dtype=torch.float32, device=gox.device)
-    s = torch.empty((ce, LANES), dtype=torch.int32, device=gox.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    err = _lib().eidola_mt_fused(
-        *[_ptr(a) for a in args], _ptr(t), _ptr(s), _ptr(u), _ptr(v),
-        ce, n_tris, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _raise_on(err, "mt_fused")
+    launch, out = launcher("mt_fused", cm_tab, anchor_row, dma_row, gleaf, sp,
+                           valid, *planes, n_tris)
+    launch()
     LAUNCHES["mt_fused"] += 1
-    return t, s, u, v
+    return out
 
 
 # ---------------------------------------------------------------- any hit
 
-def mt_any_fused_ref(cm_tab, anchor_row, dma_row, sp, valid,
-                     gox, goy, goz, gdx, gdy, gdz, gtmin, gtb, n_tris: int,
-                     chunk: int = 1024):
-    """Plain-torch occlusion drain: sign-based MT OR'd over triangles, then
-    a segmented prefix-OR (reset at each segment start)."""
+def any_flags_ref(cm_tab, anchor_row, dma_row, valid,
+                  gox, goy, goz, gdx, gdy, gdz, gtmin, gtb, n_tris: int,
+                  chunk: int = 1024):
+    """Each event's own occlusion flags (CE, 128) int32, no carry: the
+    sign-based MT (tests multiplied through by det and det^2) OR'd over
+    the leaf's triangles; an invalid row never hits.  The first launch of
+    the CUDA occlusion drain."""
     ce, n = gox.shape[0], n_tris
     val = (valid != 0)[:, None]
     hits = []
@@ -292,11 +326,29 @@ def mt_any_fused_ref(cm_tab, anchor_row, dma_row, sp, valid,
              & (ud + vd <= det2) & (td > gtmin[e][:, None] * det2)
              & (td < gtb[e][:, None] * det2) & val[e][:, None])
         hits.append(h.any(dim=1))
-    c = torch.cumsum(torch.cat(hits).to(torch.int64), 0)        # (CE, 128)
+    return torch.cat(hits).to(torch.int32)
+
+
+def segment_or_ref(h, sp, valid):
+    """The segmented prefix OR of per-event flags h (CE, 128): each row
+    ORs the rows of its segment up to itself (segment_starts; an invalid
+    row belongs to the segment before it).  The second launch of the
+    CUDA occlusion drain, which ORs in place."""
+    c = torch.cumsum(h.to(torch.int64), 0)
     start_row = _start_row(segment_starts(sp, valid))
     before = torch.where((start_row > 0)[:, None],
                          c[(start_row - 1).clamp(min=0)], 0)
     return ((c - before) > 0).to(torch.int32)
+
+
+def mt_any_fused_ref(cm_tab, anchor_row, dma_row, sp, valid,
+                     gox, goy, goz, gdx, gdy, gdz, gtmin, gtb, n_tris: int,
+                     chunk: int = 1024):
+    """Plain-torch occlusion drain: each event's flags, then the
+    segmented prefix OR."""
+    return segment_or_ref(
+        any_flags_ref(cm_tab, anchor_row, dma_row, valid, gox, goy, goz,
+                      gdx, gdy, gdz, gtmin, gtb, n_tris, chunk), sp, valid)
 
 
 def mt_any_fused(cm_tab, anchor_row, dma_row, sp, valid,
@@ -311,13 +363,8 @@ def mt_any_fused(cm_tab, anchor_row, dma_row, sp, valid,
                                 *planes, n_tris)
     if cm_tab.device.type != "cuda":
         raise ValueError(f"mt_any_fused: unsupported device {cm_tab.device}")
-    ce = gox.shape[0]
-    args = [cm_tab.contiguous(), anchor_row.contiguous(), _i32(dma_row),
-            _i32(valid), _i32(sp)] + [p.contiguous() for p in planes]
-    h = torch.empty((ce, LANES), dtype=torch.int32, device=gox.device)
-    err = _lib().eidola_mt_any_fused(
-        *[_ptr(a) for a in args], _ptr(h), ce, n_tris,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _raise_on(err, "mt_any_fused")
+    launch, (h,) = launcher("mt_any_fused", cm_tab, anchor_row, dma_row, sp,
+                            valid, *planes, n_tris)
+    launch()
     LAUNCHES["mt_any_fused"] += 1
     return h

@@ -12,13 +12,17 @@ caller (`ops/bvh.py:_traverse` under EIDOLA_MT=mxu) folds each
 sub-packet's events itself.
 
 - On a CUDA tensor `mt_mxu` launches the hand-written kernel of
-  `csrc/bvh_mxu.cu` (built with nvcc at first use), which builds the
-  coefficients in shared memory from the event's leaf row, and counts the
-  launch in `LAUNCHES`.
+  `csrc/bvh_mxu.cu` (built with nvcc at first use), which builds each
+  event's nonzero coefficients in shared memory from its leaf row, and
+  counts the launch in `LAUNCHES`; `launcher` gives the bare launch,
+  which chip_smoke.py times alone.
 - On a CPU tensor it runs the plain-torch version `mt_mxu_ref`, which
-  repeats the kernel's arithmetic in the same order (each dot sums
-  features 0..9 in turn), in slices of at most 4096 events: with the
-  kernel built without FMA contraction the two agree bit for bit.
+  repeats the kernel's arithmetic in the same order (each dot sums its
+  19 nonzero coefficients' products in feature order, as the fused
+  drains do: `_dots_sparse`), in slices of at most 4096 events: with the
+  kernel built without FMA contraction the two agree bit for bit.  The
+  dense sum over all ten features that the Pallas kernel's product
+  computes differs from it only in the sign of an exact zero.
 
 All f32: on the TPU this product ran in bf16 (bvh_mxu.py:33-36); the
 port keeps every drain exact.
@@ -29,7 +33,7 @@ import ctypes
 
 import torch
 
-from .bvh_fused import KDIM, LANES, NFEAT, _dots, _features
+from .bvh_fused import KDIM, LANES, NFEAT, _dots_sparse, _features
 
 _BIG = 1e30
 CHUNK = 4096    # events per slice of the plain version
@@ -87,15 +91,15 @@ def build_feats(anchor, ox, oy, oz, dx, dy, dz):
 def mt_mxu_ref(row, n_tris: int, ox, oy, oz, dx, dy, dz, t_min, t_lim,
                chunk: int = CHUNK):
     """Plain-torch `mt_mxu`: per-lane best (t, k, u, v) of each event's
-    leaf, t = 1e30, k = 0, u = v = 0 on a miss."""
+    leaf, t = 1e30, k = 0, u = v = 0 on a miss (no hit below 1e30)."""
     n = n_tris
     out = []
     for s in range(0, row.shape[0], chunk):
         e = slice(s, s + chunk)
         cm, anchor = build_cmat(row[e], n)
         feats = _features(anchor, ox[e], oy[e], oz[e], dx[e], dy[e], dz[e])
-        # the fused drains' dot: features 0..9 summed in order
-        det, tn, un, vn = _dots(cm.transpose(1, 2), feats, n)
+        # the fused drains' dot: the nonzero products in feature order
+        det, tn, un, vn = _dots_sparse(cm.transpose(1, 2), feats, n)
         ok = torch.abs(det) > 1e-12
         inv = torch.where(ok, 1.0 / det, 0.0)
         t, u, v = tn * inv, un * inv, vn * inv
@@ -109,7 +113,8 @@ def mt_mxu_ref(row, n_tris: int, ox, oy, oz, dx, dy, dz, t_min, t_lim,
         miss = tb >= _BIG
         ub = torch.gather(u, 1, kb[:, None].long()).squeeze(1)
         vb = torch.gather(v, 1, kb[:, None].long()).squeeze(1)
-        out.append((tb, torch.where(miss, 0, kb).to(torch.int32),
+        out.append((torch.where(miss, _BIG, tb),
+                    torch.where(miss, 0, kb).to(torch.int32),
                     torch.where(miss, 0.0, ub), torch.where(miss, 0.0, vb)))
     return tuple(torch.cat(x) for x in zip(*out))
 
@@ -144,6 +149,29 @@ def _lib():
     return lib
 
 
+def launcher(row, n_tris: int, *planes):
+    """(launch, outputs) for a CUDA call of `mt_mxu` with its arguments:
+    the inputs made contiguous once and the outputs allocated; `launch()`
+    only launches the kernel on the current stream (it does not count).
+    The wrapper calls it once; chip_smoke.py times it alone."""
+    ce = row.shape[0]
+    ins = [row.contiguous()] + [p.contiguous() for p in planes]
+    t = torch.empty((ce, LANES), dtype=torch.float32, device=row.device)
+    outs = (t, torch.empty((ce, LANES), dtype=torch.int32, device=row.device),
+            torch.empty_like(t), torch.empty_like(t))
+    ptrs = [ctypes.c_void_p(a.data_ptr()) for a in (*ins, *outs)]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    fn = _lib().eidola_mt_mxu
+
+    def launch(_alive=(ins, outs)):   # the tensors behind `ptrs`
+        err = fn(*ptrs, ce, n_tris, stream)
+        if err != 0:
+            raise RuntimeError(f"mt_mxu: CUDA launch failed with "
+                               f"cudaError_t {err}")
+
+    return launch, outs
+
+
 def mt_mxu(row, n_tris: int, ox, oy, oz, dx, dy, dz, t_min, t_lim):
     """Per-event leaf intersection (bvh_mxu.py:127-164): row (CE, n*12)
     gathered leaf rows; rays and bounds (CE, 128) f32.  Returns per-lane
@@ -155,18 +183,7 @@ def mt_mxu(row, n_tris: int, ox, oy, oz, dx, dy, dz, t_min, t_lim):
         return mt_mxu_ref(row, n_tris, *planes)
     if row.device.type != "cuda":
         raise ValueError(f"mt_mxu: unsupported device {row.device}")
-    ce = row.shape[0]
-    args = [row.contiguous()] + [p.contiguous() for p in planes]
-    t = torch.empty((ce, LANES), dtype=torch.float32, device=row.device)
-    k = torch.empty((ce, LANES), dtype=torch.int32, device=row.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
-    err = _lib().eidola_mt_mxu(
-        *[ptr(a) for a in args], ptr(t), ptr(k), ptr(u), ptr(v), ce, n_tris,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"mt_mxu: CUDA launch failed with cudaError_t "
-                           f"{err}")
+    launch, out = launcher(row, n_tris, *planes)
+    launch()
     LAUNCHES["mt_mxu"] += 1
-    return t, k, u, v
+    return out

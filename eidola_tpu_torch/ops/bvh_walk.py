@@ -9,7 +9,8 @@ cross-product Moller-Trumbore over the leaf's rows `bvh.leaf_blocks`.
   rays as one (8, P, 128) f32 tensor (o, d, t_min, t_max planes; see
   `pack_rays`) and return (t, slot, u, v) planes.  On a CUDA tensor they
   launch the kernel of `csrc/bvh_walk.cu` (built with nvcc at first use)
-  and count the launch in `LAUNCHES`; on a CPU tensor they run the plain
+  and count the launch in `LAUNCHES` (`launcher` gives the bare launch,
+  which chip_smoke.py times alone); on a CPU tensor they run the plain
   version `walk_ref` with group=1.
 - `inst=(leaf_mesh_row, leaf_inst, inst_inv)` makes the table an
   instanced BVH's grafted walk (ops/bvh_instanced.py): a drained leaf id
@@ -252,14 +253,13 @@ def _lib():
     return lib
 
 
-def _walk(name, walk, leaf_blocks, rays, max_steps, stats, inst):
-    _check(name, walk, leaf_blocks, rays, inst)
-    any_hit = name == "walk_any"
-    if walk.device.type == "cpu":
-        return walk_ref(walk, leaf_blocks, rays, any_hit, max_steps, group=1,
-                        stats=stats, inst=inst)
-    if walk.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {walk.device}")
+def launcher(name, walk, leaf_blocks, rays, max_steps, stats=None,
+             inst=None):
+    """(launch, outputs) for a CUDA call of `name` ("walk_closest" or
+    "walk_any") with the wrapper's arguments: the inputs converted once
+    and the outputs allocated; `launch()` only launches the kernel on the
+    current stream (it does not count).  The wrapper calls it once;
+    chip_smoke.py times it alone."""
     P = rays.shape[1]
     if stats is not None and (stats.dtype != torch.int32 or
                               tuple(stats.shape) != (P, 2) or
@@ -275,20 +275,38 @@ def _walk(name, walk, leaf_blocks, rays, max_steps, stats, inst):
         inst = (inst[0].to(torch.int32).contiguous(),
                 inst[1].to(torch.int32).contiguous(), inst[2].contiguous())
     t = torch.empty((P, PACKET), dtype=torch.float32, device=walk.device)
-    slot = torch.empty((P, PACKET), dtype=torch.int32, device=walk.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
+    outs = (t, torch.empty((P, PACKET), dtype=torch.int32,
+                           device=walk.device),
+            torch.empty_like(t), torch.empty_like(t))
     ptr = lambda a: ctypes.c_void_p(None if a is None else a.data_ptr())
-    err = _lib().eidola_walk(
-        ptr(walk), walk.shape[0], ptr(leaf_blocks), *[ptr(a) for a in inst],
-        ptr(rays), ptr(t), ptr(slot), ptr(u), ptr(v), ptr(stats),
-        P, leaf_blocks.shape[1] // 12, int(any_hit), int(max_steps),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
-                           f"{err}")
+    ptrs = [ptr(walk), walk.shape[0], ptr(leaf_blocks),
+            *[ptr(a) for a in inst], ptr(rays), *[ptr(a) for a in outs],
+            ptr(stats), P, leaf_blocks.shape[1] // 12, int(name == "walk_any"),
+            int(max_steps),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
+    fn = _lib().eidola_walk
+
+    def launch(_alive=(walk, leaf_blocks, rays, inst, outs, stats)):
+        err = fn(*ptrs)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed with "
+                               f"cudaError_t {err}")
+
+    return launch, outs
+
+
+def _walk(name, walk, leaf_blocks, rays, max_steps, stats, inst):
+    _check(name, walk, leaf_blocks, rays, inst)
+    if walk.device.type == "cpu":
+        return walk_ref(walk, leaf_blocks, rays, name == "walk_any",
+                        max_steps, group=1, stats=stats, inst=inst)
+    if walk.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {walk.device}")
+    launch, out = launcher(name, walk, leaf_blocks, rays, max_steps, stats,
+                           inst)
+    launch()
     LAUNCHES[name] += 1
-    return t, slot, u, v
+    return out
 
 
 def walk_closest(walk, leaf_blocks, rays, max_steps: int, stats=None,

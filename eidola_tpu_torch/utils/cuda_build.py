@@ -4,10 +4,11 @@ interface, and load them with ctypes.
 CUDA sources live in `eidola_tpu_torch/csrc/` and are built with nvcc; the
 C++ host builders (`eidola_tpu_torch/native/`) are built with g++ through
 the same `Build`.  Libraries go to the git-ignored `eidola_tpu_torch/_build/`,
-named by a hash of the source and the flags, so a change to either builds a
-new library.  Nothing is built at import time: `load(name)` builds on first
-use, and `build_together` starts several compilers at once and waits for
-all of them.
+named by a hash of the source, the headers it includes from the repo and
+the flags, so a change to any of them builds a new library.  Nothing is
+built at import time: `load(name)` builds on first use, and
+`build_together` starts several compilers at once and waits for all of
+them.
 """
 from __future__ import annotations
 
@@ -42,13 +43,32 @@ def _nvcc() -> str:
     return path
 
 
+def local_includes(src: str) -> list[str]:
+    """`src` and every file it reaches by `#include "..."` (resolved next
+    to the including file), each once, in the order first reached."""
+    seen = []
+    todo = [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path) as f:
+            names = re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), re.M)
+        todo += [os.path.join(os.path.dirname(path), n) for n in names]
+    return seen
+
+
 class Build:
     """One compiler run: `cmd_head + ["-o", tmp, src]` into `out`, where
-    `out` is named by a hash of the source and `cmd_head[1:]`."""
+    `out` is named by a hash of the source, the local headers it includes
+    and `cmd_head[1:]`."""
 
     def __init__(self, name: str, src: str, cmd_head: list[str]):
-        with open(src, "rb") as f:
-            key = hashlib.sha256(f.read() + " ".join(cmd_head[1:]).encode())
+        key = hashlib.sha256(" ".join(cmd_head[1:]).encode())
+        for path in local_includes(src):
+            with open(path, "rb") as f:
+                key.update(f.read())
         self.name, self.src, self.cmd_head = name, src, cmd_head
         self.out = os.path.join(BUILD_DIR,
                                 f"lib{name}-{key.hexdigest()[:16]}.so")

@@ -7,6 +7,11 @@ invalid tail, and the tie patterns the drains must resolve exactly —
 triangle 1 of every leaf duplicates triangle 0 (an exact-t tie inside an
 event) and leaf 1 duplicates leaf 0 (a tie across the first two events).
 Each sub-packet's 128 rays are aimed at the leaf of its first event.
+
+`edge=True` adds the cases the kernels' fast paths must leave unchanged
+(`add_edges`): determinants at the 1e-12 threshold and one at 2^126 (the
+reciprocal's range check falls back to the division), a warp whose lanes
+all hit triangle 0, dead warps and dead events.
 """
 from __future__ import annotations
 
@@ -15,11 +20,20 @@ import numpy as np
 from ..ops.bvh_fused import build_leaf_tables_np
 
 
+# det = b of triangle 0 of leaves 2-5 (add_edges) for rays along -z: one
+# ulp below the drains' 1e-12 threshold, at it (not above), one ulp above,
+# and well above it
+THR = np.float32(1e-12)
+EDGE_DETS = (np.nextafter(THR, np.float32(0)), THR,
+             np.nextafter(THR, np.float32(1)), np.float32(1e-6))
+HUGE = np.float32(2.0 ** 63)   # edges of a triangle whose det is 2^126
+
+
 def make_case(n: int, n_leaves: int, runs, ce: int, seed: int,
-              spread: float = 0.0) -> dict:
+              spread: float = 0.0, edge: bool = False) -> dict:
     """numpy arrays: cm (L,16,4n), blocks (L,12n), anchor (ce,3),
     leaf/sp/valid (ce,) int32, rays: 8 planes (ce,128) f32
-    [ox,oy,oz,dx,dy,dz,tmin,tlim]."""
+    [ox,oy,oz,dx,dy,dz,tmin,tlim]; edge=True: add_edges (n_leaves >= 6)."""
     rng = np.random.default_rng(seed)
     L = n_leaves
     centers = rng.uniform(-spread, spread, (L, 1, 3)).astype(np.float32)
@@ -30,7 +44,6 @@ def make_case(n: int, n_leaves: int, runs, ce: int, seed: int,
     v0[1], e1[1], e2[1] = v0[0], e1[0], e2[0]
     blocks = np.zeros((L, n, 12), np.float32)
     blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6:9] = v0, e1, e2
-    cm, anchor = build_leaf_tables_np(blocks.reshape(L, n * 12), n)
 
     runs = list(runs)
     sp = np.concatenate([np.full(r, i, np.int32) for i, r in enumerate(runs)])
@@ -55,9 +68,43 @@ def make_case(n: int, n_leaves: int, runs, ce: int, seed: int,
     g = lambda a: np.ascontiguousarray(a[sp])
     rays = [g(o[..., 0]), g(o[..., 1]), g(o[..., 2]), g(d[..., 0]),
             g(d[..., 1]), g(d[..., 2]), g(tmin), g(tlim)]
+    if edge:
+        add_edges(blocks, leaf, rays, rng)
+    cm, anchor = build_leaf_tables_np(blocks.reshape(L, n * 12), n)
     return dict(cm=cm, blocks=blocks.reshape(L, n * 12),
                 anchor=np.ascontiguousarray(anchor[leaf]), leaf=leaf,
                 sp=sp, valid=valid, rays=rays, n=n, n_valid=n_valid)
+
+
+def add_edges(blocks, leaf, rays, rng) -> None:
+    """In place, on make_case's (L, n, 12) leaves and (ce, 128) ray planes.
+
+    Leaves 2-5: triangle 0 is (0, e1 = x, e2 = b y) at the origin (the
+    leaf's anchor), b from EDGE_DETS; triangle 1 spans the plane z = -0.5
+    with edges of 2^63 (det 2^126 for rays along -z: the reciprocal's
+    range check falls back to the division, for the whole warp); the
+    other triangles move 10 away in x and y.  In each event of those
+    leaves, lanes 0-31 run along -z from z = 1 through triangle 0 at
+    (u, v) in [0.05, 0.45]^2: one warp whose lanes all hit triangle 0
+    (t = 1) where b passes the threshold, triangle 1 (t = 1.5) where it
+    does not; lanes 32-63 are dead (t_lim = -1 < t_min): a dead warp.
+    Every 11th event is dead on all lanes."""
+    ox, oy, oz, dx, dy, dz, tmin, tlim = rays
+    for L, b in zip(range(2, 6), EDGE_DETS):
+        blocks[L, 2:, 0:2] += 10.0
+        blocks[L, 0] = 0.0
+        blocks[L, 0, 3], blocks[L, 0, 7] = 1.0, b
+        blocks[L, 1] = 0.0
+        blocks[L, 1, 0:3] = (-HUGE / 4, -HUGE / 4, -0.5)
+        blocks[L, 1, 3], blocks[L, 1, 7] = HUGE, HUGE
+        rows = np.flatnonzero(leaf == L)
+        uv = rng.uniform(0.05, 0.45, (rows.size, 32, 2)).astype(np.float32)
+        ox[rows, :32] = uv[..., 0]
+        oy[rows, :32] = b * uv[..., 1]
+        oz[rows, :32] = 1.0
+        dx[rows, :32], dy[rows, :32], dz[rows, :32] = 0.0, 0.0, -1.0
+        tlim[rows, 32:64] = -1.0
+    tlim[5::11] = -1.0
 
 
 def random_runs(total: int, max_run: int, seed: int) -> list[int]:

@@ -7,7 +7,9 @@ so it runs on a machine with the card but no JAX:
 
 (`--noconftest`: the suite's conftest.py configures JAX.)  Built without
 FMA contraction, each kernel must agree with its plain version bit for
-bit, invalid tail rows included (mt_mxu: dead rays); the walk kernel
+bit, invalid tail rows included (mt_mxu: dead rays), and on
+drain_case's edges (the reciprocal's division branch, dets at the 1e-12
+threshold, all-dead and all-hit warps); the walk kernel
 against `walk_ref` with group=1 (its one-block-per-packet semantics), on
 flat and instanced BVHs, outputs and per-packet step and event counts
 alike.
@@ -27,17 +29,23 @@ from eidola_tpu_torch.utils.drain_case import (make_case, mxu_args,
 torch.set_num_threads(2)
 
 CASES = [
-    # (leaf size, leaves, runs, events, spread, seed)
-    (8, 6, [3, 14, 1, 9, 2, 5], 48, 0.0, 7),
-    (64, 6, [3, 14, 1, 9, 2, 5], 48, 0.0, 8),
-    (64, 512, random_runs(1000, 32, 9), 1024, 20.0, 9),
+    # (leaf size, leaves, runs, events, spread, seed, drain_case edges)
+    (8, 6, [3, 14, 1, 9, 2, 5], 48, 0.0, 7, False),
+    (64, 6, [3, 14, 1, 9, 2, 5], 48, 0.0, 8, False),
+    (64, 512, random_runs(1000, 32, 9), 1024, 20.0, 9, False),
     # many one-event segments: one block per event, no carry
-    (64, 256, [1] * 2000, 2048, 20.0, 10),
+    (64, 256, [1] * 2000, 2048, 20.0, 10, False),
     # 32-event segments (the queue's depth), an invalid tail, exact-t
     # ties inside an event and across the first two
-    (64, 64, [32] * 30, 1024, 0.0, 11),
-    (8, 64, [32] * 30, 1024, 0.0, 12),
+    (64, 64, [32] * 30, 1024, 0.0, 11, False),
+    (8, 64, [32] * 30, 1024, 0.0, 12, False),
+    # the edges: det at the 1e-12 threshold and 2^126 (the division
+    # branch), warps whose lanes all hit triangle 0, dead warps and events
+    (64, 6, [3, 14, 1, 9, 2, 5], 48, 0.0, 13, True),
+    (8, 6, [3, 14, 1, 9, 2, 5], 48, 0.0, 14, True),
+    (64, 64, random_runs(1000, 32, 15), 1024, 0.0, 15, True),
 ]
+PARAMS = "n,leaves,runs,ce,spread,seed,edge"
 
 
 @pytest.fixture
@@ -52,9 +60,10 @@ def _bits(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,leaves,runs,ce,spread,seed", CASES)
-def test_closest_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed):
-    c = make_case(n, leaves, runs, ce, seed, spread)
+@pytest.mark.parametrize(PARAMS, CASES)
+def test_closest_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed,
+                                      edge):
+    c = make_case(n, leaves, runs, ce, seed, spread, edge)
     args = torch_args(c, cuda, closest=True)
     before = TF.LAUNCHES["mt_fused"]
     out = TF.mt_fused(*args, n)
@@ -67,9 +76,10 @@ def test_closest_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,leaves,runs,ce,spread,seed", CASES)
-def test_any_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed):
-    c = make_case(n, leaves, runs, ce, seed, spread)
+@pytest.mark.parametrize(PARAMS, CASES)
+def test_any_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed,
+                                  edge):
+    c = make_case(n, leaves, runs, ce, seed, spread, edge)
     args = torch_args(c, cuda, closest=False)
     before = TF.LAUNCHES["mt_any_fused"]
     h = TF.mt_any_fused(*args, n)
@@ -81,12 +91,13 @@ def test_any_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,leaves,runs,ce,spread,seed", CASES)
-def test_mxu_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed):
+@pytest.mark.parametrize(PARAMS, CASES)
+def test_mxu_kernel_matches_plain(cuda, n, leaves, runs, ce, spread, seed,
+                                  edge):
     """mt_mxu on gathered leaf rows: exact-t ties inside each event
     (triangle 1 duplicates 0) and across events (leaf 1 duplicates leaf
     0), a dead invalid tail."""
-    c = make_case(n, leaves, runs, ce, seed, spread)
+    c = make_case(n, leaves, runs, ce, seed, spread, edge)
     args = mxu_args(c, cuda)
     before = TM.LAUNCHES["mt_mxu"]
     out = TM.mt_mxu(args[0], n, *args[1:])

@@ -5,7 +5,14 @@ traversal against the JAX package's.
 - `mt_mxu` (on the CPU its plain version, `mt_mxu_ref`) against the
   Pallas kernel in interpret mode, at leaf size 8 on 48 events (a
   multiple of the kernel's 16-event grid step), with misses, degenerate
-  triangles (det = 0), exact-t ties and t_lim cuts.
+  triangles (det = 0), exact-t ties and t_lim cuts; and at leaf size 64
+  with drain_case's edges: det one ulp below, at and one ulp above the
+  1e-12 threshold, det 2^126 (the CUDA kernel's division branch), dead
+  warps and dead events.
+- `mt_mxu_ref` sums only the 19 nonzero coefficient products (as the
+  CUDA kernel does); the dense sum over all ten features (the Pallas
+  kernel's product, kept here in `_dense_ref`) gives the same values
+  (`==`, so +0 and -0 are equal) and the same k.
 - A whole closest hit and any hit on `stress` (n=2) with the port's
   `bvh.MT = "mxu"` against JAX `closest_hit` / `any_hit` with
   `eidola_tpu.ops.bvh.MT_MODE = "mxu"` (read at trace time: patched before
@@ -36,6 +43,7 @@ import eidola_tpu.ops.bvh_mxu as JM
 from eidola_tpu_torch import interop
 from eidola_tpu_torch.ops import bvh as TB
 from eidola_tpu_torch.ops import bvh_mxu as TM
+from eidola_tpu_torch.ops.bvh_fused import NFEAT, _features
 from eidola_tpu_torch.utils.drain_case import make_case, mxu_args
 
 torch.set_num_threads(2)
@@ -55,12 +63,13 @@ def _rows(ce, n, seed):
     return tri, o, d
 
 
-def _case(n, seed):
+def _case(n, seed, edge=False):
     """48 events of random leaves with the drain_case ties (triangle 1 of
     each leaf duplicates triangle 0), plus degenerate triangles (e2 = 0,
     and e2 = e1: det = 0 exactly), rays cut at a random t_lim on 30% of
-    lanes, and a dead tail."""
-    c = make_case(n, n_leaves=6, runs=[3, 14, 1, 9, 2, 5], ce=48, seed=seed)
+    lanes, and a dead tail; edge=True adds drain_case's edges."""
+    c = make_case(n, n_leaves=6, runs=[3, 14, 1, 9, 2, 5], ce=48, seed=seed,
+                  edge=edge)
     rows = c["blocks"][c["leaf"]].reshape(48, n, 12).copy()
     rows[:, 2, 6:9] = 0.0
     rows[:, 3, 6:9] = rows[:, 3, 3:6]
@@ -113,6 +122,81 @@ def test_mt_mxu_matches_pallas(seed):
     np.testing.assert_allclose(pt[hit & ~same], jt[hit & ~same], rtol=1e-5)
     np.testing.assert_allclose(pu[same], ju[same], atol=1e-5)
     np.testing.assert_allclose(pv[same], jv[same], atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [13, 14])
+def test_mt_mxu_edge_dets_match_pallas(seed):
+    """Leaf size 64 with drain_case's edges.  Lanes 0-31 of leaves 2-5 run
+    through triangle 0, whose det is one ulp below, at, one ulp above and
+    well above 1e-12: it wins (t = 1) only where det passes the
+    threshold, and triangle 1 (det 2^126, t = 1.5) wins elsewhere; lanes
+    32-63 of those events and every 11th event are dead."""
+    c, args = _case(64, seed, edge=True)
+    jt, jk, ju, jv = [np.asarray(a) for a in JM.mt_mxu(
+        jnp.asarray(c["blocks_rows"]), 64,
+        *[jnp.asarray(a.numpy()) for a in args[1:]])]
+    pt, pk, pu, pv = [a.numpy() for a in TM.mt_mxu(args[0], 64, *args[1:])]
+    hit = jt < 1e30
+    np.testing.assert_array_equal(pt < 1e30, hit)
+    np.testing.assert_allclose(pt[hit], jt[hit], rtol=2e-5)
+    for a, b in ((pt, jt), (pk, jk), (pu, ju), (pv, jv)):
+        np.testing.assert_array_equal(a[~hit], b[~hit])
+    same = hit & (pk == jk)
+    assert same.sum() >= 0.999 * hit.sum()
+    np.testing.assert_allclose(pu[same], ju[same], atol=1e-5)
+    np.testing.assert_allclose(pv[same], jv[same], atol=1e-5)
+    live = (c["valid"] == 1) & (np.arange(48) % 11 != 5)
+    for leaf, want_k, want_t in zip(range(2, 6), (1, 1, 0, 0),
+                                    (1.5, 1.5, 1.0, 1.0)):
+        rows = np.flatnonzero(live & (c["leaf"] == leaf))
+        assert rows.size, f"no live event of leaf {leaf}"
+        for k, t in ((pk, pt), (jk, jt)):
+            assert (k[rows, :32] == want_k).all()
+            np.testing.assert_allclose(t[rows, :32], want_t, rtol=1e-6)
+        assert not hit[rows, 32:64].any()            # the dead warp
+    assert not hit[5::11].any()                      # the dead events
+
+
+def _dense_ref(row, n, ox, oy, oz, dx, dy, dz, t_min, t_lim):
+    """`mt_mxu_ref` with the dense dot: build_cmat's ten coefficients of
+    each form times the ten features, zeros included, summed in order
+    0..9."""
+    cm, anchor = TM.build_cmat(row, n)
+    f = _features(anchor, ox, oy, oz, dx, dy, dz)
+    acc = cm[:, :, 0, None] * f[:, None, 0, :]
+    for j in range(1, NFEAT):
+        acc = acc + cm[:, :, j, None] * f[:, None, j, :]
+    det, tn, un, vn = acc[:, :n], acc[:, n:2 * n], acc[:, 2 * n:3 * n], \
+        acc[:, 3 * n:]
+    ok = torch.abs(det) > 1e-12
+    inv = torch.where(ok, 1.0 / det, 0.0)
+    t, u, v = tn * inv, un * inv, vn * inv
+    hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > t_min[:, None]) & (t < t_lim[:, None]))
+    tm = torch.where(hit, t, 1e30)
+    tb = torch.amin(tm, dim=1)
+    kb = torch.amin(torch.where(tm <= tb[:, None],
+                                torch.arange(n)[None, :, None], n), dim=1)
+    miss = tb >= 1e30
+    ub = torch.gather(u, 1, kb[:, None]).squeeze(1)
+    vb = torch.gather(v, 1, kb[:, None]).squeeze(1)
+    return (torch.where(miss, 1e30, tb), torch.where(miss, 0, kb),
+            torch.where(miss, 0.0, ub), torch.where(miss, 0.0, vb))
+
+
+@pytest.mark.parametrize("n,seed,edge", [(8, 15, False), (64, 16, False),
+                                         (64, 17, True)],
+                         ids=["leaf8", "leaf64", "leaf64-edges"])
+def test_sparse_ref_equals_dense_sum(n, seed, edge):
+    """Leaving the zero products out changes at most the sign of an
+    exact zero: values equal under ==, k exactly."""
+    _, args = _case(n, seed, edge)
+    st, sk, su, sv = TM.mt_mxu_ref(args[0], n, *args[1:])
+    dt, dk, du, dv = _dense_ref(args[0], n, *args[1:])
+    assert (st < 1e30).any()
+    assert torch.equal(sk, dk.to(torch.int32))
+    for a, b in ((st, dt), (su, du), (sv, dv)):
+        assert bool((a == b).all())
 
 
 def test_mt_mxu_plain_chunks_agree():
