@@ -28,39 +28,53 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    on (set by the app from the scene), EIDOLA_TRAV=pallas, 2 frames:
    the walk kernels trace the instanced opaque bulk (closest and any
    hit) and the flat alpha BVH, and no drain kernel runs;
-7. standin DI phase: bistro_standin at 1920x1080 with --no-denoise
+7. interactive phase: bistro_standin at 1920x1080 under
+   EIDOLA_TRAV=pallas, 4 frames, with --orbit 0.01 --restir
+   spatiotemporal --shadow-cadence 4 --primary-seed: the camera moves
+   every frame, so after every frame the accumulation count is 1 and on
+   frames 2-4 the motion vectors are not the identity; both walk kernels
+   run and no drain; it keeps the direct stage's primary walk on the
+   instanced bulk apart by frame, frame 0's (no seed yet) and the seeded
+   ones of frames 2-4 (t_max bounded on some lanes by the last frame's
+   triangle), and prints the share of lanes each seed bounds;
+8. standin DI phase: bistro_standin at 1920x1080 with --no-denoise
    --no-indirect under the default traversal, 2 frames: the instanced
    torch walk with the fused drains on object-space rays;
-8. mxu phase: the same DI frame under EIDOLA_MT=mxu, 2 frames: every
+9. mxu phase: the same DI frame under EIDOLA_MT=mxu, 2 frames: every
    closest-hit drain goes through mt_mxu, and neither the fused drains
    nor the walk kernels run;
-   each of phases 3-8 sets every launch count to 0 just before it and
+   each of phases 3-9 sets every launch count to 0 just before it and
    reads them just after, checks the image (shape, finite, in [0, 1],
    not black) and the accumulation count, that each kernel of its path
    was launched and that the kernels of the other paths were not, and
    keeps the arguments of each kernel's largest call (the walk kernels'
    largest instanced and largest flat call apart);
-9. kernel phase: each kernel on those arguments (the frames' own shapes:
+10. kernel phase: each kernel on those arguments (the frames' own shapes:
    leaf 64, the full bistro tables) against its plain torch version on
    the card, bitwise, with times from CUDA events: the whole wrapper
    call, the kernel alone (its bare launch on arguments already
    converted: `launcher` of its module) and the plain version; the walk
    kernels also against walk_ref's per-packet step and event counts,
-   which give their bound; plus the drain kernels on a synthetic case
+   which give their bound (the interactive phase's seeded primary walk of
+   frame 4 and, beside it, frame 0's unseeded one with their steps and
+   leaf events per packet, and the seeded call's own rays with t_max
+   unbounded again: the seed's effect on the same rays, whose hits must
+   not change); plus the drain kernels on a synthetic case
    with an invalid tail and exact-t ties, and on one with drain_case's
    edges (dets at the 1e-12 threshold and at 2^126, dead and all-hit
    warps), which the frames do not hold; for mt_any_fused and mt_mxu
    also what each call's data asks of the kernel (lanes alive, warp
    steps taken, triangles past the vote after the u test);
-10. goldens on the card: cornell, punctual, textured, hdr and alpha (the
+11. goldens on the card: cornell, punctual, textured, hdr and alpha (the
    HitTest on) at 64x64, max_depth=2, traversal_max_steps=1024, 4
    frames, through the walk kernel, each within 0.02 mean abs of
    tests/golden/*_64_d2_f4.npy;
-11. holds small DI frames on the card against the same frames through
+12. holds small DI frames on the card against the same frames through
    the plain versions on the CPU (cornell 32x32, stress 64x64);
-12. prints one JSON line with an entry per kernel and path (the
-   bistro_flat DI and GI frames, the standin frame, the standin DI
-   frames with the fused and the mxu drains): that phase's launches and
+13. prints one JSON line with an entry per kernel and path (the
+   bistro_flat DI and GI frames, the standin frame, the interactive
+   frame, the standin DI frames with the fused and the mxu drains):
+   that phase's launches and
    the kernel's error, times (`ms` the wrapper call, `kernel_ms` the
    kernel alone) and bound on the phase's largest call;
    then, last, {"ok": true, "device": {...}}.
@@ -84,6 +98,14 @@ GI_XLA_ARGS = BISTRO + ["--size", "960", "540", "--frames", "2"]
 STANDIN = ["--scene", "bistro_standin", "--quiet", "--size", "1920", "1080",
            "--frames", "2"]
 STANDIN_DI = STANDIN + ["--no-denoise", "--no-indirect"]
+INTERACTIVE = ["--scene", "bistro_standin", "--quiet", "--size", "1920",
+               "1080", "--frames", "4", "--orbit", "0.01", "--restir",
+               "spatiotemporal", "--shadow-cadence", "4", "--primary-seed"]
+_TMAX = 1e8      # an unbounded ray's t_max (render/direct.py)
+# the direct stage's primary walk on the instanced bulk: frame 0's, which
+# has no seed yet, and frame 4's, seeded from frame 3's triangles
+PRIMARY0 = "walk_closest+inst+primary0"
+SEEDED = "walk_closest+inst+seeded3"
 FUSED_SRC = "eidola_tpu_torch/csrc/bvh_fused.cu"
 WALK_SRC = "eidola_tpu_torch/csrc/bvh_walk.cu"
 MXU_SRC = "eidola_tpu_torch/csrc/bvh_mxu.cu"
@@ -186,6 +208,73 @@ class Capture:
             setattr(self.module, k, fn)
 
 
+class PrimaryWatch:
+    """While active, tells the walk calls made inside the direct stage's
+    primary trace apart, by frame: `key` gives a walk_closest call there
+    the suffix "+primary0" on frame 0 (no seed yet) and "+seeded<i>" on
+    frame i > 0; every other call keeps walk_capture's key."""
+
+    def __init__(self):
+        self.frame, self.inside = -1, False
+
+    def __enter__(self):
+        from eidola_tpu_torch.render import direct
+
+        self.orig = direct.trace_closest
+
+        def primary(*args, **kw):
+            self.frame += 1
+            self.inside = True
+            try:
+                return self.orig(*args, **kw)
+            finally:
+                self.inside = False
+
+        direct.trace_closest = primary
+        return self
+
+    def __exit__(self, *exc):
+        from eidola_tpu_torch.render import direct
+
+        direct.trace_closest = self.orig
+
+    def key(self, name, kw):
+        key = name + ("+inst" if kw.get("inst") is not None else "")
+        if self.inside and name == "walk_closest":
+            key += f"+seeded{self.frame}" if self.frame else "+primary0"
+        return key
+
+
+class FrameWatch:
+    """While active, keeps each frame's accumulation count and motion
+    vectors (references only: no sync inside the timed frames)."""
+
+    def __init__(self):
+        self.frames = []
+
+    def __enter__(self):
+        from eidola_tpu_torch.app import headless
+
+        self.orig = headless.make_step
+
+        def make_step(cfg):
+            step = self.orig(cfg)
+
+            def watched(*args, **kw):
+                state, out = step(*args, **kw)
+                self.frames.append((state.accum_count, out["motion"]))
+                return state, out
+            return watched
+
+        headless.make_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        from eidola_tpu_torch.app import headless
+
+        headless.make_step = self.orig
+
+
 def drain_capture():
     from eidola_tpu_torch.ops import bvh_fused
 
@@ -207,7 +296,7 @@ def mxu_capture():
     return Capture(bvh_mxu, MXU, lambda a: a[0].shape[0])        # events
 
 
-def check_frame(res, shape, frames, label) -> None:
+def check_frame(res, shape, frames, label, accum=None) -> None:
     import numpy as np
 
     img, state = res["image"], res["state"]
@@ -217,15 +306,17 @@ def check_frame(res, shape, frames, label) -> None:
         fail(f"{label}: image not finite in [0, 1]")
     if img.mean() < 0.02:
         fail(f"{label}: image is black (mean {img.mean():.4f})")
-    if float(state.accum_count) != float(frames):
-        fail(f"{label}: accum_count {float(state.accum_count)} != {frames}")
+    accum = frames if accum is None else accum
+    if float(state.accum_count) != float(accum):
+        fail(f"{label}: accum_count {float(state.accum_count)} != {accum}")
 
 
 def run_phase(label, argv, shape, frames, trav, captures, used, unused,
-              mt="fused"):
+              mt="fused", accum=None, watch=()):
     """One main-path run through the headless entry point, its launch
     counts set to 0 just before and read just after; `captures` keep the
-    arguments of each watched kernel's largest call."""
+    arguments of each watched kernel's largest call; `watch`: other
+    context managers active during the run."""
     import contextlib
 
     import torch
@@ -236,7 +327,7 @@ def run_phase(label, argv, shape, frames, trav, captures, used, unused,
     packets.TRAV, bvh.MT = trav, mt
     try:
         with contextlib.ExitStack() as stack:
-            for cap in captures:
+            for cap in (*watch, *captures):
                 stack.enter_context(cap)
             _reset_launches()
             res = headless.run(argv)
@@ -244,7 +335,7 @@ def run_phase(label, argv, shape, frames, trav, captures, used, unused,
             launches = _launches()
     finally:
         packets.TRAV, bvh.MT = "xla", "fused"
-    check_frame(res, shape, frames, label)
+    check_frame(res, shape, frames, label, accum)
     args = {k: v for cap in captures for k, v in cap.args.items()}
     for name in used:
         if launches[name.split("+")[0]] <= 0 or name not in args:
@@ -269,12 +360,102 @@ def run_phase(label, argv, shape, frames, trav, captures, used, unused,
     return launches, res
 
 
+def check_calls(label, launches, sizes) -> None:
+    """Each walk launch of a phase came through a watched call."""
+    for name in WALKS:
+        calls = sum(len(v) for k, v in sizes.items()
+                    if k.split("+")[0] == name)
+        if calls != launches[name]:
+            fail(f"{label}: {name} counted {launches[name]} launches in "
+                 f"{calls} calls")
+
+
 def check_standin(res) -> None:
     """The headline frame: alpha HitTest on, ~2.89M instanced triangles."""
     lo, hi = STANDIN_TRIS
     if not res["alpha_geometry"] or not lo <= res["n_tris"] <= hi:
         fail(f"standin: alpha_geometry {res['alpha_geometry']}, "
              f"{res['n_tris']} triangles (want True, {lo:.0f}-{hi:.0f})")
+
+
+def check_interactive(res, frames: FrameWatch, walks: Capture) -> None:
+    """The moving camera resets the accumulation every frame, its motion
+    vectors leave the identity on frames 2-4, and the seeded primary
+    walk really starts bounded on some lanes."""
+    import torch
+
+    check_standin(res)
+    if len(frames.frames) != 4:
+        fail(f"interactive: {len(frames.frames)} frames watched, not 4")
+    for i, (count, motion) in enumerate(frames.frames):
+        if float(count) != 1.0:
+            fail(f"interactive: accum_count {float(count)} after frame "
+                 f"{i + 1}, not 1 (the camera moved)")
+        if i:
+            h, w = motion.shape[:2]
+            own = torch.stack(torch.meshgrid(
+                torch.arange(h, device=motion.device),
+                torch.arange(w, device=motion.device), indexing="ij"), -1)
+            moved = ((motion != own).any(-1) & (motion[..., 0] >= 0)).sum()
+            if int(moved) == 0:
+                fail(f"interactive: frame {i + 1}'s motion vectors are the "
+                     f"identity")
+            print(f"interactive: frame {i + 1}: {int(moved)} pixels "
+                  f"reproject elsewhere", flush=True)
+    shares = []
+    for i in range(4):
+        key = "walk_closest+inst+" + (f"seeded{i}" if i else "primary0")
+        if key not in walks.args:
+            fail(f"interactive: no {key} call captured")
+        t_max = walks.args[key][0][2][7]
+        shares.append(float(((t_max > 0.0) & (t_max < _TMAX)).float()
+                            .mean()))
+    print("interactive: the primary walk on the instanced bulk has t_max "
+          "bounded by the seed on " + ", ".join(
+              f"{x:.4f}" for x in shares) + " of its lanes on frames 1-4",
+          flush=True)
+    if shares[0] != 0.0 or min(shares[1:]) == 0.0:
+        fail("interactive: frame 0's primary walk must have no seed and "
+             "frames 2-4's a seed on some lanes")
+
+
+def seed_effect(call, label) -> None:
+    """What the seed does to one walk: the seeded call against the same
+    rays with t_max unbounded again, through the kernel, with its step
+    and leaf-event counts.  The hits must not change (the seed is a real
+    intersection, so it bounds the closest hit from above)."""
+    import torch
+
+    from eidola_tpu_torch.ops import bvh_walk as W
+
+    (walk, leaf_blocks, rays, max_steps), kw = call
+    inst = kw.get("inst")
+    twin = rays.clone()
+    twin[7] = torch.where(twin[7] > 0.0, _TMAX, twin[7])
+    P = rays.shape[1]
+    stats = [torch.zeros((P, 2), dtype=torch.int32, device=rays.device)
+             for _ in range(2)]
+    got = [W.walk_closest(walk, leaf_blocks, r, max_steps, stats=st,
+                          inst=inst) for r, st in zip((rays, twin), stats)]
+    torch.cuda.synchronize()
+    (t_s, k_s, _, _), (t_u, k_u, _, _) = got
+    if not torch.equal(t_s.view(torch.int32), t_u.view(torch.int32)) or \
+            not torch.equal(k_s >= 0, k_u >= 0):
+        fail(f"seed ({label}): the seeded walk's hits differ from the "
+             f"unseeded walk's on the same rays")
+    ms = [time_ms(lambda r=r: W.walk_closest(walk, leaf_blocks, r, max_steps,
+                                             inst=inst), 5)
+          for r in (rays, twin)]
+    (st_s, ev_s), (st_u, ev_u) = ((int(x[:, 0].sum()), int(x[:, 1].sum()))
+                                  for x in stats)
+    print(f"seed ({label}): seeded / unseeded on the same {P} packets: "
+          f"walk steps {st_s} / {st_u} ({st_s / P:.1f} / {st_u / P:.1f} a "
+          f"packet, {100.0 * (st_s / st_u - 1.0):+.1f}%), leaf events "
+          f"{ev_s} / {ev_u} ({ev_s / P:.2f} / {ev_u / P:.2f} a packet, "
+          f"{100.0 * (ev_s / ev_u - 1.0):+.1f}%); cuda {ms[0]:.4f} / "
+          f"{ms[1]:.4f} ms; same winner on "
+          f"{float((k_s == k_u).float().mean()):.6f} of the lanes",
+          flush=True)
 
 
 def _equal_bits(got, want) -> float:
@@ -697,12 +878,21 @@ def main() -> None:
     check_standin(st)
     del st
     st_sizes = st_walks.sizes
-    for name in WALKS:
-        calls = sum(len(v) for k, v in st_sizes.items()
-                    if k.split("+")[0] == name)
-        if calls != st_launches[name]:
-            fail(f"standin: {name} counted {st_launches[name]} launches in "
-                 f"{calls} calls")
+    check_calls("standin", st_launches, st_sizes)
+    # the interactive frame: moving camera, spatiotemporal ReSTIR,
+    # visibility reuse and the seeded primary walk, every traversal
+    # through the walk kernels
+    from eidola_tpu_torch.ops import bvh_walk
+
+    watch, frames = PrimaryWatch(), FrameWatch()
+    it_walks = Capture(bvh_walk, WALKS, lambda a: a[2].shape[1], watch.key)
+    it_launches, it = run_phase(
+        "interactive (pallas)", INTERACTIVE, (1080, 1920, 3), 4, "pallas",
+        [it_walks], (PRIMARY0, SEEDED, "walk_any+inst", "walk_closest"),
+        DRAINS + MXU, accum=1, watch=(watch, frames))
+    check_interactive(it, frames, it_walks)
+    del it, frames
+    check_calls("interactive", it_launches, it_walks.sizes)
     sd_cap = drain_capture()
     sd_launches, sd = run_phase(
         "standin DI (xla)", STANDIN_DI, (1080, 1920, 3), 2, "xla",
@@ -727,6 +917,21 @@ def main() -> None:
             "walk_closest", st_walks.args["walk_closest"],
             "largest standin alpha-BVH traversal")}
     del st_walks
+    it_times = {
+        "walk_closest": check_walk(
+            "walk_closest", it_walks.args[SEEDED],
+            "interactive frame-4 seeded primary, instanced"),
+        "walk_any": check_walk(
+            "walk_any", it_walks.args["walk_any+inst"],
+            "largest interactive instanced occlusion traversal")}
+    # beside it, printed and not held to anything: frame 0's primary,
+    # which has no seed yet (another view: the first orbit also changes
+    # the field of view), and the seeded call's own rays unseeded
+    check_walk("walk_closest", it_walks.args[PRIMARY0],
+               "interactive frame-0 primary (unseeded), instanced")
+    seed_effect(it_walks.args[SEEDED], "interactive frame 4, instanced")
+    del it_walks
+    torch.cuda.empty_cache()
     sd_times = {name: check_drain(
         name, sd_cap.args[name][0],
         "largest standin DI drain (instanced, object space)")
@@ -748,6 +953,11 @@ def main() -> None:
             + [(k.split("+")[0], "standin 1920x1080 pallas, "
                 + ("instanced BVH" if "+" in k else "alpha BVH"),
                 len(st_sizes[k]), st_times[k]) for k in st_times]
+            + [(k, "interactive standin 1920x1080 pallas (orbit, "
+                "spatiotemporal, shadow cadence 4, primary seed), "
+                + ("seeded primary, instanced BVH" if k == "walk_closest"
+                   else "instanced BVH"), it_launches[k], it_times[k])
+               for k in WALKS]
             + [(k, "standin DI 1920x1080 xla", sd_launches[k], sd_times[k])
                for k in DRAINS]
             + [(k, "standin DI 1920x1080 mxu", mx_launches[k], times[k])

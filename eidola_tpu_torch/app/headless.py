@@ -7,6 +7,16 @@ Usage:
 renders the default frame (ReSTIR DI + GI, a-trous denoise) on the card;
 `--device cpu` renders on the CPU instead, and nothing falls back from
 CUDA to the CPU.  `--no-indirect` / `--no-denoise` drop those stages.
+The flags are the JAX app's but for -e/--env, --save-state and
+--load-state: `--orbit RAD` moves the camera each frame after the first
+(CameraManipulator, so temporal reuse reprojects and accumulation
+resets), `--restir` takes all five modes, `--shadow-cadence N` and
+`--primary-seed` turn on visibility reuse and the seeded primary walk,
+`--descale N` renders at 1/N of the extent (rounded down to multiples of
+32) and upscales the image back bilinearly, as jax.image.resize does.
+As in the JAX app, the manipulator's first move rebuilds the projection
+at its own 60 degree fovy and the render aspect, whatever the scene
+camera's fovy.
 The alpha HitTest is on exactly when the scene has an alpha-tested
 material, as in the JAX app.  EIDOLA_TRAV=pallas traces every BVH, flat
 or instanced, through the one-kernel walk (ops/bvh_walk.py); EIDOLA_MT=mxu drains the
@@ -24,11 +34,16 @@ import torch
 from ..models.scenes import load_scene
 from ..render.config import RenderConfig, default_params, default_tonemap
 from ..render.frame import init_frame_state, make_step
+from ..scene.camera import CameraManipulator, advance
 from ..scene.data import ALPHA_OPAQUE
-from ..scene.camera import advance
 from ..utils.profiler import StageTimer, trace
 
-RESTIR_MODES = {"none": 0, "ris": 1, "temporal": 3}
+DEBUG_MODES = {
+    "none": 0, "direct": 1, "indirect": 2, "basecolor": 3, "normal": 4,
+    "depth": 5, "metallic": 6, "emissive": 7, "roughness": 8, "texcoord": 9,
+}
+RESTIR_MODES = {"none": 0, "ris": 1, "spatial": 2, "temporal": 3,
+                "spatiotemporal": 4}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -47,15 +62,30 @@ def build_argparser() -> argparse.ArgumentParser:
                         "renders on the CPU)")
     p.add_argument("--out", default=None, help="PNG path for the last frame")
     p.add_argument("--hdr-out", default=None, help="also dump linear .npy")
+    p.add_argument("--max-depth", type=int, default=4)
+    p.add_argument("--debug", choices=sorted(DEBUG_MODES), default="none")
     p.add_argument("--restir", choices=sorted(RESTIR_MODES),
                    default="temporal")
     p.add_argument("--no-denoise", action="store_true")
     p.add_argument("--no-indirect", action="store_true")
+    p.add_argument("--orbit", type=float, default=0.0,
+                   help="radians/frame camera orbit (exercises temporal "
+                        "reuse)")
+    p.add_argument("--descale", type=int, default=1,
+                   help="divide the render extent by N (ref "
+                        "sample_example.cpp:396-399); the image is upscaled "
+                        "back")
     p.add_argument("--tonemap", choices=["uncharted2", "hejl", "aces"],
                    default="uncharted2")
     p.add_argument("--auto-exposure", type=int, default=0)
     p.add_argument("--exposure", type=float, default=1.0)
     p.add_argument("--no-texture-mips", action="store_true")
+    p.add_argument("--shadow-cadence", type=int, default=1,
+                   help="DI shadow visibility-reuse cadence (1 = validate "
+                        "every frame; N = 1/N of tiles per frame)")
+    p.add_argument("--primary-seed", action="store_true",
+                   help="seed the primary walk's t_max by re-testing last "
+                        "frame's hit triangle per pixel")
     p.add_argument("--profile-trace", default=None,
                    help="directory for a torch.profiler trace of one extra "
                         "frame (its kernel summary joins the output)")
@@ -68,6 +98,36 @@ def set_numerics() -> None:
     low-precision drains made cornell 67% darker, docs/PERF_NOTES.md)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def resize_bilinear(img, height: int, width: int):
+    """(H, W, C) -> (height, width, C) as jax.image.resize(method=
+    "bilinear") computes it: a triangle kernel widened by the scale when
+    shrinking, weights renormalised over the taps inside the image (so a
+    border pixel is not darkened), one weight matrix per axis."""
+    def weights(n_in: int, n_out: int):
+        inv = n_in / n_out
+        f32 = dict(dtype=torch.float32, device=img.device)
+        sample = (torch.arange(n_out, **f32) + 0.5) * inv - 0.5
+        x = torch.abs(sample[None, :] - torch.arange(n_in, **f32)[:, None]
+                      ) / max(inv, 1.0)
+        w = torch.clamp(1.0 - x, min=0.0)
+        tot = w.sum(0, keepdim=True)
+        eps = torch.finfo(torch.float32).eps
+        w = torch.where(torch.abs(tot) > 1000.0 * eps,
+                        w / torch.where(tot != 0, tot, 1.0), 0.0)
+        return torch.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None],
+                           w, 0.0)
+
+    wy = weights(img.shape[0], height)
+    wx = weights(img.shape[1], width)
+    return torch.einsum("hwc,hy,wx->yxc", img, wy, wx)
+
+
+def _pivot_from_cam(cam) -> np.ndarray:
+    """A look-at pivot 3 units along the view axis."""
+    fwd = -cam.view_inv[:3, 2].cpu().numpy()
+    return cam.pos.cpu().numpy() + fwd * 3.0
 
 
 def _sync(device) -> None:
@@ -84,8 +144,12 @@ def run(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
     device = torch.device(args.device)
     set_numerics()
-    w = args.size[0]
-    h = args.size[1] if len(args.size) > 1 else args.size[0]
+    full_w = args.size[0]
+    full_h = args.size[1] if len(args.size) > 1 else args.size[0]
+    w, h = full_w, full_h
+    if args.descale > 1:
+        w = max(w // args.descale // 32 * 32, 32)
+        h = max(h // args.descale // 32 * 32, 32)
     log = (lambda *a: None) if args.quiet else print
 
     t0 = time.perf_counter()
@@ -96,15 +160,19 @@ def run(argv=None) -> dict:
 
     cfg = RenderConfig(
         width=w, height=h,
+        max_depth=args.max_depth,
         env_mode="hdr" if scene.env is not None else "sunsky",
         restir_mode=RESTIR_MODES[args.restir],
         denoise=not args.no_denoise,
         indirect_enabled=not args.no_indirect,
+        debug_mode=DEBUG_MODES[args.debug],
         tonemap_kind={"uncharted2": 0, "hejl": 1, "aces": 2}[args.tonemap],
         texture_mips=not args.no_texture_mips,
         # the alpha HitTest only where the scene needs it (static switch)
         alpha_geometry=bool(
             (scene.materials.alpha_mode != ALPHA_OPAQUE).any()),
+        shadow_cadence=args.shadow_cadence,
+        primary_seed=args.primary_seed,
     )
     params = default_params(device=device)
     if scene.env is not None:
@@ -114,6 +182,9 @@ def run(argv=None) -> dict:
         auto_exposure=torch.tensor(args.auto_exposure, device=device),
         exposure=torch.tensor(args.exposure, dtype=torch.float32,
                               device=device))
+    manip = CameraManipulator(cam.pos.cpu().numpy(), _pivot_from_cam(cam),
+                              aspect=w / h, device=device)
+    manip._cam = cam             # the scene's framing until the first move
     state = init_frame_state(cfg, cam)
     step = make_step(cfg)
     timer = StageTimer(device)
@@ -122,7 +193,7 @@ def run(argv=None) -> dict:
     outputs = None
     for i in range(args.frames):
         if i:
-            cam = advance(cam)       # static camera: roll last* matrices
+            cam = manip.orbit(args.orbit, 0.0) if args.orbit else manip.hold()
         t1 = time.perf_counter()
         # stages are timed in steady state: frame 0 carries the warm-up
         state, outputs = step(scene, cam, params, tm, state,
@@ -142,7 +213,10 @@ def run(argv=None) -> dict:
             np.mean(steady))
         log(json.dumps(profile))
 
-    img = outputs["image"].cpu().numpy()
+    img = outputs["image"]
+    if args.descale > 1:
+        img = resize_bilinear(img, full_h, full_w)
+    img = img.cpu().numpy()
     if args.out:
         from PIL import Image
 

@@ -9,9 +9,13 @@ weighted by
   * exp(-||x_p - x_q||^2 / (sigma_depth * 2^level))
   * a hard material-hash gate.
 Taps are static shifted slices of an edge-padded tensor, as in the JAX
-package.  The single-pass `bilateral_denoise` stays ROADMAP A10.
+package.  `bilateral_denoise` is the single-pass alternative (ref
+denoise_direct.comp:73-137, compile-time DENOISER_DIRECT_BILATERAL); no
+RenderConfig selects it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -36,12 +40,13 @@ def _shift(a, dy: int, dx: int, pad: int):
     return a[pad + dy:pad + dy + h, pad + dx:pad + dx + w]
 
 
-def atrous_level(img, view: GBufferView, level: int, sigma_lum, sigma_norm,
-                 sigma_depth):
-    """One a-trous iteration at stride 2^level (ref
-    denoise_direct.comp:19-71)."""
-    stride = 1 << level
-    pad = 2 * stride
+def _edge_stopped(img, view: GBufferView, taps, sigma_lum, sigma_norm,
+                  sigma_depth):
+    """The weighted mean over `taps` (dy, dx, spatial weight k) of the
+    edge-padded image, each tap weighted by k and the edge stops (luma,
+    normal, position, material gate); pixels without a surface keep
+    their value."""
+    pad = max(max(abs(dy), abs(dx)) for dy, dx, _ in taps)
     img_p = _pad(img, pad)
     pos_p = _pad(view.pos, pad)
     nrm_p = _pad(view.nrm, pad)
@@ -51,33 +56,41 @@ def atrous_level(img, view: GBufferView, level: int, sigma_lum, sigma_norm,
     lum_c = luminance(img)
     inv_sl = 1.0 / torch.clamp(sigma_lum, min=1e-4)
     inv_sn = 1.0 / torch.clamp(sigma_norm, min=1e-4)
-    inv_sd = 1.0 / torch.clamp(sigma_depth * stride, min=1e-4)
+    inv_sd = 1.0 / torch.clamp(sigma_depth, min=1e-4)
 
     acc = torch.zeros_like(img)
     wsum = torch.zeros_like(lum_c)
-    for iy, ky in enumerate(_K5):
-        for ix, kx in enumerate(_K5):
-            dy = (iy - 2) * stride
-            dx = (ix - 2) * stride
-            q_img = _shift(img_p, dy, dx, pad)
-            q_pos = _shift(pos_p, dy, dx, pad)
-            q_nrm = _shift(nrm_p, dy, dx, pad)
-            q_hash = _shift(hash_p, dy, dx, pad)
-            q_valid = _shift(valid_p, dy, dx, pad)
+    for dy, dx, k in taps:
+        q_img = _shift(img_p, dy, dx, pad)
+        q_pos = _shift(pos_p, dy, dx, pad)
+        q_nrm = _shift(nrm_p, dy, dx, pad)
+        q_hash = _shift(hash_p, dy, dx, pad)
+        q_valid = _shift(valid_p, dy, dx, pad)
 
-            w_l = torch.exp(-torch.abs(luminance(q_img) - lum_c) * inv_sl)
-            dn = view.nrm - q_nrm
-            w_n = torch.exp(-torch.sum(dn * dn, dim=-1) * inv_sn)
-            dp = view.pos - q_pos
-            w_x = torch.exp(-torch.sum(dp * dp, dim=-1) * inv_sd)
-            gate = (q_hash == view.mat_hash) & q_valid & view.valid
+        w_l = torch.exp(-torch.abs(luminance(q_img) - lum_c) * inv_sl)
+        dn = view.nrm - q_nrm
+        w_n = torch.exp(-torch.sum(dn * dn, dim=-1) * inv_sn)
+        dp = view.pos - q_pos
+        w_x = torch.exp(-torch.sum(dp * dp, dim=-1) * inv_sd)
+        gate = (q_hash == view.mat_hash) & q_valid & view.valid
 
-            w = (ky * kx) * w_l * w_n * w_x * gate.to(torch.float32)
-            acc = acc + q_img * w[..., None]
-            wsum = wsum + w
+        w = k * w_l * w_n * w_x * gate.to(torch.float32)
+        acc = acc + q_img * w[..., None]
+        wsum = wsum + w
 
     out = acc / torch.clamp(wsum, min=1e-8)[..., None]
     return torch.where(view.valid[..., None], out, img)
+
+
+def atrous_level(img, view: GBufferView, level: int, sigma_lum, sigma_norm,
+                 sigma_depth):
+    """One a-trous iteration at stride 2^level (ref
+    denoise_direct.comp:19-71)."""
+    stride = 1 << level
+    taps = [((iy - 2) * stride, (ix - 2) * stride, ky * kx)
+            for iy, ky in enumerate(_K5) for ix, kx in enumerate(_K5)]
+    return _edge_stopped(img, view, taps, sigma_lum, sigma_norm,
+                         sigma_depth * stride)
 
 
 def atrous_denoise(img, view: GBufferView, levels: int, sigma_lum, sigma_norm,
@@ -88,3 +101,16 @@ def atrous_denoise(img, view: GBufferView, levels: int, sigma_lum, sigma_norm,
         img = atrous_level(img, view, level, sigma_lum, sigma_norm,
                            sigma_depth)
     return img
+
+
+def bilateral_denoise(img, view: GBufferView, radius: int, sigma_lum,
+                      sigma_norm, sigma_depth):
+    """Single-pass bilateral filter over a (2 radius + 1)^2 window with a
+    Gaussian spatial weight and the a-trous edge stops (ref
+    denoise_direct.comp:73-137)."""
+    sigma_px = max(radius / 2.0, 1.0)
+    taps = [(dy, dx, math.exp(-(dx * dx + dy * dy)
+                              / (2.0 * sigma_px * sigma_px)))
+            for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1)]
+    return _edge_stopped(img, view, taps, sigma_lum, sigma_norm, sigma_depth)

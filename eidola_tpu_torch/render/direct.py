@@ -1,25 +1,32 @@
-"""ReSTIR DI direct stage: G-buffer + RIS + visibility + temporal reuse
-(port of eidola_tpu/render/direct.py; ref shaders/direct_stage.comp:129-289).
+"""ReSTIR DI direct stage: G-buffer + RIS + visibility + temporal and
+spatial reuse (port of eidola_tpu/render/direct.py; ref
+shaders/direct_stage.comp:129-289).
 
-Per frame, full resolution, SoA over (H, W): primary hit -> motion vector
+Per frame, full resolution, SoA over (H, W): primary hit (its t_max
+seeded from last frame's triangle under `primary_seed`) -> motion vector
 + packed G-buffer; RIS over M light candidates; one shadow ray for the
-winner; temporal merge with the reprojected history reservoir behind the
-normal/depth/matHash gates; M-clamp; albedo-demodulated shading; firefly
-clamp and HDR->LDR.
+winner (under `shadow_cadence` > 1 only on 1/cadence of the 8x16 tiles,
+the rest reuse the reprojected visibility); temporal merge with the
+reprojected history reservoir behind the normal/depth/matHash gates;
+M-clamp; spatial disk-neighbour rounds; albedo-demodulated shading;
+firefly clamp and HDR->LDR.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from ..ops import reservoir as resv
 from ..ops import rng as erng
-from ..ops.halo import halo_gather_tree
+from ..ops.halo import halo_gather, halo_gather_tree
+from ..ops.intersect import ray_triangle
 from ..ops.math import (clamp_radiance, dot3, hdr_to_ldr, luminance,
                         make_frame, offset_ray, to_local)
+from ..ops.packets import TILE_H, TILE_W
 from ..scene.camera import Camera, project_to_pixel, spawn_rays
-from ..scene.data import SceneData
+from ..scene.data import ALPHA_OPAQUE, SceneData, shade_row
 from .bsdf import BsdfParams, eval_bsdf
 from .config import (RESTIR_NONE, RESTIR_SPATIAL, RESTIR_SPATIOTEMPORAL,
                      RESTIR_TEMPORAL, RenderConfig, RenderParams)
@@ -85,25 +92,69 @@ def _temporal_gates(view: GBufferView, hist: GBufferView):
     return view.valid & hist.valid & n_ok & d_ok & m_ok
 
 
-def _unsupported(cfg: RenderConfig):
-    if cfg.primary_seed:
-        raise NotImplementedError("primary_seed is ported with ROADMAP A10")
-    if cfg.shadow_cadence > 1:
-        raise NotImplementedError(
-            "shadow_cadence > 1 (visibility reuse) is ported with ROADMAP A10")
-    if cfg.spatial_rounds > 0 or cfg.restir_mode in (RESTIR_SPATIAL,
-                                                     RESTIR_SPATIOTEMPORAL):
-        raise NotImplementedError(
-            "spatial ReSTIR reuse is ported with ROADMAP A10")
+def _seed_tmax(cfg: RenderConfig, scene: SceneData, o, d, prev_tri):
+    """primary_seed: re-test last frame's triangle at each pixel against
+    this frame's ray.  A hit is a real intersection, so its t bounds the
+    walk from step 0.  Instanced BVHs re-test in the instance's object
+    space (the unnormalised transformed direction keeps t).  The slot and
+    instance tables hold -1 for ids this BVH does not own (the other half
+    of an opaque/alpha split): the gathers are clamped and masked, never
+    wrapped to the last row.  Under the HitTest only opaque predicted
+    hits may seed, since an alpha hit may be passed through."""
+    bvh = scene.bvh
+    ptc = torch.clamp(prev_tri, min=0)
+    slot = bvh.slot_of_tri[ptc]
+    row = bvh.leaf_blocks.reshape(-1, 12)[torch.clamp(slot, min=0)]
+    if scene.inst is None:
+        o_t, d_t = o, d
+    else:
+        inst = torch.clamp(bvh.inst_of_tri[ptc], min=0)
+        r = bvh.inst_inv[inst].reshape(*inst.shape, 3, 4)
+        o_t = torch.einsum("...ij,...j->...i", r[..., :3], o) + r[..., 3]
+        d_t = torch.einsum("...ij,...j->...i", r[..., :3], d)
+    p_hit, p_t, _, _ = ray_triangle(o_t, d_t, row[..., 0:3], row[..., 3:6],
+                                    row[..., 6:9], _TMIN, _TMAX)
+    ok = (prev_tri >= 0) & (slot >= 0) & p_hit
+    if cfg.alpha_geometry:
+        arow, _ = shade_row(scene, ptc)
+        ok &= scene.materials.alpha_mode[scene.tri_mat[arow]] == ALPHA_OPAQUE
+    return torch.where(ok, p_t * (1.0 + 1e-4) + 1e-6, _TMAX)
+
+
+def _tile_active(h: int, w: int, frame_idx, cadence: int, device):
+    """Visibility reuse's mask: the 8x16 tiles that re-validate this frame,
+    tea(tile id, frame index) % cadence == 0, in uint32 arithmetic."""
+    fi = erng.u32(0 if frame_idx is None else frame_idx, device=device)
+    ty = torch.arange(h, dtype=torch.int64, device=device)[:, None] // TILE_H
+    tx = torch.arange(w, dtype=torch.int64, device=device)[None, :] // TILE_W
+    tile_id = (ty * -(-w // TILE_W) + tx) & erng.M32
+    return erng.tea(tile_id, fi) % cadence == 0
+
+
+def _reuse_visibility(cfg: RenderConfig, need, gates, prev_vis, mot_y, mot_x,
+                      frame_idx):
+    """Visibility reuse for shadow_cadence > 1: only the active tiles
+    re-validate their winner; elsewhere a pixel whose reprojection passes
+    the gates and whose last winner's visibility is known reuses it (per
+    tile, so a skipped packet retires from the walk at once).  Returns
+    (must: the shadow rays to trace, vis_prev: the reprojected
+    visibility)."""
+    h, w = need.shape
+    vis_prev, _ = halo_gather(prev_vis, mot_y, mot_x, cfg.temporal_halo)
+    vis_known = gates & (vis_prev >= 0.0)
+    active = _tile_active(h, w, frame_idx, cfg.shadow_cadence, need.device)
+    return need & (active | ~vis_known), vis_prev
 
 
 def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
                  cam: Camera, prev_gbuf: GBuffer, prev_resv: dict,
-                 prev_cam: Camera, rng_state, timer=None):
-    """K1.  Returns (rng_state, DirectOut).  `timer` (utils.profiler
-    StageTimer) marks primary_trace, shading_ris, shadow_trace and
-    di_temporal_shade."""
-    _unsupported(cfg)
+                 prev_cam: Camera, rng_state, prev_vis=None, frame_idx=None,
+                 timer=None):
+    """K1.  Returns (rng_state, DirectOut).  `prev_vis` and `frame_idx`
+    (the FrameState's di_vis and frame_idx) drive visibility reuse.
+    `timer` (utils.profiler StageTimer) marks primary_trace, shading_ris,
+    shadow_trace, di_temporal_shade and, in the spatial modes,
+    di_spatial."""
     h, w = cfg.height, cfg.width
     dev = rng_state.device
     full = lambda v: torch.full((h, w), v, dtype=torch.float32, device=dev)
@@ -111,7 +162,10 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
 
     # --- primary hit ---------------------------------------------------
     rng_state, o, d = spawn_rays(cam, h, w, rng_state)
-    rng_state, rec = trace_closest(cfg, scene, o, d, full(_TMIN), full(_TMAX),
+    t_max0 = full(_TMAX)
+    if cfg.primary_seed and scene.bvh.slot_of_tri is not None:
+        t_max0 = _seed_tmax(cfg, scene, o, d, prev_gbuf.tri)
+    rng_state, rec = trace_closest(cfg, scene, o, d, full(_TMIN), t_max0,
                                    rng_state, coherent=True)
     mark("primary_trace")
     t_hit = rec.t
@@ -148,10 +202,11 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
         r = resv.resv_update(r, {"li": ls.li, "wi": ls.wi, "dist": ls.dist},
                              wgt, u)
 
-    # --- reprojection gates ------------------------------------------------
-    temporal_on = cfg.restir_mode == RESTIR_TEMPORAL
+    # --- reprojection gates (temporal merge and visibility reuse) ---------
+    temporal_on = cfg.restir_mode in (RESTIR_TEMPORAL, RESTIR_SPATIOTEMPORAL)
+    use_vis_reuse = cfg.shadow_cadence > 1 and prev_vis is not None
     gates = mot_y = mot_x = None
-    if temporal_on:
+    if temporal_on or use_vis_reuse:
         prev_view = decode_gbuffer(prev_gbuf, prev_cam.pos,
                                    center_rays(prev_cam, h, w))
         mot_y = torch.clamp(motion[..., 0], 0, h - 1)
@@ -167,12 +222,19 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
         dot3(state.geo_nrm, sel["wi"])[..., None] >= 0,
         state.geo_nrm, -state.geo_nrm))
     need = state.valid & (r["weight"] > 0.0)
-    shadow_tmax = torch.where(need, sel["dist"] * 0.999, -1.0)
+    if use_vis_reuse:
+        must, vis_prev = _reuse_visibility(cfg, need, gates, prev_vis, mot_y,
+                                           mot_x, frame_idx)
+    else:
+        must = need
+    shadow_tmax = torch.where(must, sel["dist"] * 0.999, -1.0)
     mark("shading_ris")
     rng_state, occluded = trace_occlusion(cfg, scene, origin, sel["wi"],
                                           full(_TMIN), shadow_tmax, rng_state,
                                           coherent=True)
     mark("shadow_trace")
+    if use_vis_reuse:
+        occluded = torch.where(must, occluded, vis_prev < 0.5)
     vis_out = torch.where(need, torch.where(occluded, 0.0, 1.0), -1.0)
     r["weight"] = torch.where(occluded | ~state.valid, 0.0, r["weight"])
 
@@ -183,14 +245,23 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
         rng_state, u = erng.rand(rng_state)
         r = resv.resv_merge_same_target(r, hist_resv, u, enabled=gates)
 
-    # --- clamp + save carry ---------------------------------------------
+    # --- clamp + save carry (pre-spatial) ---------------------------------
+    # the clamped pre-spatial reservoir is the next frame's history, so
+    # spatial correlations never compound through the temporal chain
     if use_restir:
         carry = resv.resv_clamp(resv.resv_check(r),
                                 cfg.ris_sample_num * params.reservoir_clamp)
     else:
         carry = resv.resv_check(r)
 
+    # --- spatial reuse rounds ---------------------------------------------
+    if cfg.restir_mode in (RESTIR_SPATIAL, RESTIR_SPATIOTEMPORAL):
+        mark("di_temporal_shade")
+        rng_state, r = _spatial_reuse(cfg, view, r, rng_state)
+        mark("di_spatial")
+
     # --- shade --------------------------------------------------------------
+    # (the unclamped post-spatial reservoir, as the reference shades)
     r = resv.resv_check(r)
     sel = r["sample"]
     p_hat_sel = _phat(state, wo, sel["li"], sel["wi"])
@@ -203,3 +274,65 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
     return rng_state, DirectOut(
         illum_ldr=hdr_to_ldr(illum), emission=emission, gbuf=gbuf, view=view,
         motion=motion, resv=carry, state=state, vis=vis_out)
+
+
+def _spatial_gates(view: GBufferView, n_view: GBufferView):
+    """Normal dot > 0.5, depth within 10%, no material-hash test: looser
+    than the temporal gates (ref direct_stage.comp:95-105)."""
+    n_ok = dot3(view.nrm, n_view.nrm) > 0.5
+    d_ok = torch.abs(view.depth - n_view.depth) < 0.1 * torch.clamp(
+        view.depth, min=1e-3)
+    return view.valid & n_view.valid & n_ok & d_ok
+
+
+def _disk_offset(cfg: RenderConfig, rng_state):
+    """A neighbour offset per pixel, uniform on the disk of
+    cfg.spatial_radius pixels, rounded half to even.  Draws a1, a2.
+    Returns (rng_state, oy, ox)."""
+    rng_state, a1 = erng.rand(rng_state)
+    rng_state, a2 = erng.rand(rng_state)
+    ang = 2.0 * math.pi * a1
+    rad = cfg.spatial_radius * torch.sqrt(a2)
+    oy = torch.round(rad * torch.sin(ang)).to(torch.int64)
+    ox = torch.round(rad * torch.cos(ang)).to(torch.int64)
+    return rng_state, oy, ox
+
+
+def _spatial_reuse(cfg: RenderConfig, view: GBufferView, r_src: dict,
+                   rng_state):
+    """Spatial rounds (ref direct_stage.comp:224-255, 86-121): each round
+    merges cfg.spatial_neighbors disk-distributed neighbours of the cached
+    post-temporal reservoirs `r_src` (every round reads the same cache)
+    into a per-round aggregate; the rounds' aggregates merge into one
+    reservoir, which folds into the pixel's own once at the end.
+    Self-merges are skipped.  The rng draws come in the JAX package's
+    order: a1, a2 (_disk_offset) and u per neighbour, u per round, u at
+    the end.  As
+    there, the neighbour disk has the declared radius and the gate tests
+    the actual neighbour (the reference's +-1 px pick and self-gate are
+    not replicated).  Returns (rng_state, merged reservoir)."""
+    h, w = view.depth.shape
+    dev = view.depth.device
+    ys = torch.arange(h, dtype=torch.int64, device=dev)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.int64, device=dev)[None, :].expand(h, w)
+    # |offset| <= spatial_radius, so every in-bounds tap is inside the halo
+    s_halo = int(math.ceil(cfg.spatial_radius))
+    spatial = empty_di_reservoir(h, w, device=dev)
+    for _round in range(max(cfg.spatial_rounds, 1)):
+        agg = empty_di_reservoir(h, w, device=dev)
+        for _k in range(cfg.spatial_neighbors):
+            rng_state, oy, ox = _disk_offset(cfg, rng_state)
+            ny, nx = ys + oy, xs + ox
+            inb = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
+            not_self = (oy != 0) | (ox != 0)
+            nyc = torch.clamp(ny, 0, h - 1)
+            nxc = torch.clamp(nx, 0, w - 1)
+            n_view, _ = halo_gather_tree(view, nyc, nxc, s_halo)
+            n_resv, _ = halo_gather_tree(r_src, nyc, nxc, s_halo)
+            gates = _spatial_gates(view, n_view) & inb & not_self
+            rng_state, u = erng.rand(rng_state)
+            agg = resv.resv_merge_same_target(agg, n_resv, u, enabled=gates)
+        rng_state, u = erng.rand(rng_state)
+        spatial = resv.resv_merge_same_target(spatial, agg, u)
+    rng_state, u = erng.rand(rng_state)
+    return rng_state, resv.resv_merge_same_target(r_src, spatial, u)

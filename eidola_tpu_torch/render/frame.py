@@ -60,6 +60,12 @@ def init_frame_state(cfg: RenderConfig, cam: Camera) -> FrameState:
     )
 
 
+def reset_accumulation(state: FrameState) -> FrameState:
+    """resetFrame analog (ref sample_example.cpp:178-204)."""
+    return state._replace(accum=torch.zeros_like(state.accum),
+                          accum_count=torch.zeros_like(state.accum_count))
+
+
 def _camera_moved(cam: Camera, prev: Camera):
     return (torch.any(torch.abs(cam.view - prev.view) > 1e-6)
             | torch.any(torch.abs(cam.proj - prev.proj) > 1e-6))
@@ -119,7 +125,8 @@ def render_frame(cfg: RenderConfig, scene: SceneData, cam: Camera,
     # ---- direct stage (K1) ---------------------------------------------
     rng_full, out_d = direct_stage(
         cfg, scene, params, cam, state.gbuf, state.di_resv, state.prev_cam,
-        rng_full, timer=timer)
+        rng_full, prev_vis=state.di_vis, frame_idx=state.frame_idx,
+        timer=timer)
 
     # ---- indirect stage (K2) -------------------------------------------
     if cfg.indirect_enabled and cfg.max_depth >= 1:

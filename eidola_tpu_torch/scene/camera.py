@@ -119,3 +119,72 @@ def project_to_pixel(proj_view, p, height: int, width: int):
     py = (0.5 - ndc_y * 0.5) * height
     inside = valid & (px >= 0) & (px < width) & (py >= 0) & (py < height)
     return py, px, inside
+
+
+class CameraManipulator:
+    """Orbit/dolly/pan camera controller (port of the JAX package's; ref
+    main.cpp:66-68 setLookat, the GUI's orbit interaction).  Eye, pivot
+    and up stay float64 numpy; each change builds a new Camera on
+    `device` with the previous matrices in its last* slots, so motion
+    vectors stay correct."""
+
+    def __init__(self, eye, center, up=(0.0, 1.0, 0.0), fovy_deg=60.0,
+                 aspect=1.0, *, device):
+        self.eye = np.asarray(eye, np.float64)
+        self.center = np.asarray(center, np.float64)
+        self.up = np.asarray(up, np.float64)
+        self.fovy_deg = float(fovy_deg)
+        self.aspect = float(aspect)
+        self.device = torch.device(device)
+        self._cam = make_camera(self.eye, self.center, self.up,
+                                self.fovy_deg, self.aspect,
+                                device=self.device)
+
+    @property
+    def camera(self) -> Camera:
+        return self._cam
+
+    def _refresh(self) -> Camera:
+        self._cam = make_camera(self.eye, self.center, self.up,
+                                self.fovy_deg, self.aspect, last=self._cam,
+                                device=self.device)
+        return self._cam
+
+    def orbit(self, d_azimuth_rad: float, d_elevation_rad: float) -> Camera:
+        """Rotate the eye around the pivot (center)."""
+        off = self.eye - self.center
+        r = np.linalg.norm(off)
+        az = np.arctan2(off[0], off[2]) + d_azimuth_rad
+        el = np.arcsin(np.clip(off[1] / max(r, 1e-9), -1, 1)) + d_elevation_rad
+        el = np.clip(el, -1.55, 1.55)
+        self.eye = self.center + r * np.asarray(
+            [np.cos(el) * np.sin(az), np.sin(el), np.cos(el) * np.cos(az)])
+        return self._refresh()
+
+    def dolly(self, factor: float) -> Camera:
+        """Move the eye toward (factor < 1) or away from the pivot."""
+        self.eye = self.center + (self.eye - self.center) * factor
+        return self._refresh()
+
+    def pan(self, dx: float, dy: float) -> Camera:
+        """Translate eye and pivot in the view plane."""
+        f = self.center - self.eye
+        f /= np.linalg.norm(f)
+        s = np.cross(f, self.up)
+        s /= np.linalg.norm(s)
+        u = np.cross(s, f)
+        delta = s * dx + u * dy
+        self.eye = self.eye + delta
+        self.center = self.center + delta
+        return self._refresh()
+
+    def recenter(self, center) -> Camera:
+        """Move the orbit pivot to a picked world position, keeping the eye
+        (ref sample_example.cpp:456-497 screen picking)."""
+        self.center = np.asarray(center, np.float64)
+        return self._refresh()
+
+    def hold(self) -> Camera:
+        """No movement this frame: roll the matrices forward."""
+        self._cam = advance(self._cam)
+        return self._cam

@@ -4,8 +4,9 @@
   the stream: on a CUDA device it records a CUDA event (device time, no
   sync), on the CPU it reads the host clock.  `summary()` returns the
   milliseconds of each stage, summed over every frame that marked it.
-  A frame marks primary_trace, shading_ris, shadow_trace and
-  di_temporal_shade (render/direct.py), gi_trace and gi_resample
+  A frame marks primary_trace, shading_ris, shadow_trace,
+  di_temporal_shade and, in the spatial ReSTIR modes, di_spatial
+  (render/direct.py), gi_trace and gi_resample
   (render/indirect.py), denoise and compose_post (render/frame.py), so
   the stages cover the whole frame.
 - `trace(fn, out_dir, device)` runs `fn` once under torch.profiler, writes

@@ -266,3 +266,118 @@ def test_hittest_against_opaque_half(alpha, march, monkeypatch):
     if alpha == 1.0:
         assert bool(((rec.t[inside] - 2.4).abs() < 1e-3).all())
         assert bool(occ[inside].all())
+
+
+def _j_seed_tmax(js, o, d, pt):
+    """primary_seed's t_max0 in the JAX package (render/direct.py:147-179)
+    with the HitTest on."""
+    from eidola_tpu.ops.intersect import ray_triangle
+    from eidola_tpu.scene.data import shade_row
+
+    bvh = js.bvh
+    ptc = jnp.maximum(pt, 0)
+    slot = bvh.slot_of_tri[ptc]
+    row = bvh.leaf_blocks.reshape(-1, 12)[slot]
+    if js.inst is None:
+        o_t, d_t = o, d
+    else:
+        r = bvh.inst_inv[bvh.inst_of_tri[ptc]].reshape(ptc.shape + (3, 4))
+        o_t = jnp.einsum("...ij,...j->...i", r[..., :3], o) + r[..., 3]
+        d_t = jnp.einsum("...ij,...j->...i", r[..., :3], d)
+    p_hit, p_t, _, _ = ray_triangle(o_t, d_t, row[..., 0:3], row[..., 3:6],
+                                    row[..., 6:9], 1e-4, 1e8)
+    ok = (pt >= 0) & (slot >= 0) & p_hit
+    arow, _ = shade_row(js, ptc)
+    ok &= js.materials.alpha_mode[js.tri_mat[arow]] == 0
+    return np.asarray(jnp.where(ok, p_t * (1.0 + 1e-4) + 1e-6, 1e8))
+
+
+def test_primary_seed_tmax_matches_jax_split(pair):
+    """primary_seed on the split scenes with the HitTest on: last frame's
+    triangles (opaque and alpha) from rays a little off this frame's;
+    t_max0 within 1e-6 relative of the JAX expression (the instanced
+    re-test runs through einsum in both, in other orders); only opaque
+    triangles of the BVH's own half seed; the seeded trace gives the
+    unseeded trace's hits."""
+    from eidola_tpu_torch.render.direct import _seed_tmax
+
+    _, js, ts, center, spread = pair
+    o, d = _rays(center, spread, n=512, seed=6)
+    n = o.shape[0]
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    tn, tx = torch.full((n,), 1e-4), torch.full((n,), 1e8)
+    prev = TT._merge_closest(
+        TB.closest_hit(ts.bvh, to + 0.01, td, tn, tx) if ts.inst is None
+        else TT.closest_hit_img(ts.bvh, (to + 0.01)[None], td[None],
+                                tn[None], tx[None]),
+        TB.closest_hit(ts.bvh_alpha, to + 0.01, td, tn, tx))
+    pt = prev.tri.reshape(n)
+    assert bool((ts.bvh.slot_of_tri[pt.clamp(min=0)] < 0).any())  # alpha ids
+    cfg, _ = _cfgs(primary_seed=True)
+    t = _seed_tmax(cfg, ts, to, td, pt).numpy()
+    j = _j_seed_tmax(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(pt))
+    np.testing.assert_array_equal(t == 1e8, j == 1e8)
+    np.testing.assert_allclose(t, j, rtol=1e-6)
+    seeded = t < 1e8
+    assert 0.2 < seeded.mean() < 0.95
+    rng = trng.seed_pixels(1, n, 3, device=CPU)[0]
+    _, rec0 = TT.trace_closest(cfg, ts, to, td, tn, tx, rng)
+    _, rec1 = TT.trace_closest(cfg, ts, to, td, tn, torch.from_numpy(t), rng)
+    assert torch.equal(rec0.tri, rec1.tri) and torch.equal(rec0.t, rec1.t)
+
+
+def test_blend_queue_march_matches_jax(monkeypatch):
+    """ROADMAP C2: a BLEND material through the queue march, the port's
+    against the JAX package's, EIDOLA_ALPHA_MARCH=queue on both sides:
+    both draw one rng number per queued test, so the rng words (one
+    advance per test), the hits after the re-traces and the occlusion
+    verdicts are equal per ray."""
+    import eidola_tpu.models.scenes as JSC
+    from eidola_tpu.scene.data import ALPHA_BLEND, upload_scene
+
+    quads = [JSC.quad_tris([-2, -2, z], [2, -2, z], [2, 2, z], [-2, 2, z])
+             for z in (1.0, 1.3, 1.6)]
+    box = JSC.box_tris([0, 0, -1.0], [0.5, 0.5, 0.5])
+    tris = np.concatenate(quads + [box])
+    nq = sum(q.shape[0] for q in quads)
+    mats = np.concatenate([np.zeros(nq, np.int32),
+                           np.ones(box.shape[0], np.int32)])
+    js = upload_scene(tris[:, 0], tris[:, 1], tris[:, 2], mat_ids=mats,
+                      materials=[{"base_color": [1, 1, 1, 0.5],
+                                  "alpha_mode": ALPHA_BLEND},
+                                 {"base_color": [0.5, 0.2, 0.2, 1.0]}])
+    ts = interop.to_torch(js, CPU)
+    n = 384
+    r = np.random.default_rng(17)
+    o = np.concatenate([r.uniform(-2.5, 2.5, (n, 2)), np.full((n, 1), 4.0)],
+                       1).astype(np.float32)
+    o[: n // 2, :2] *= 0.2                  # half of them at the box
+    d = np.tile([0.0, 0.0, -1.0], (n, 1)).astype(np.float32)
+    tmin = np.full(n, 1e-4, np.float32)
+    tmax = np.full(n, 1e8, np.float32)
+    smax = np.full(n, 6.0, np.float32)
+    cfg, jcfg = _cfgs(alpha_hops=4, traversal_max_steps=512)
+    monkeypatch.setenv("EIDOLA_ALPHA_MARCH", "queue")
+    t = lambda a: torch.from_numpy(a)
+    rng_t = trng.seed_pixels(1, n, 9, device=CPU)[0]
+    rng_j = jrng.seed_pixels(1, n, jnp.uint32(9))[0]
+
+    rt, rec = TT.trace_closest(cfg, ts, t(o), t(d), t(tmin), t(tmax), rng_t)
+    j = lambda a: jnp.asarray(a)
+    rj, jrec = JT.trace_closest(jcfg, js, j(o), j(d), j(tmin), j(tmax), rng_j)
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj).astype(np.int64))
+    np.testing.assert_array_equal(rec.tri.numpy(), np.asarray(jrec.tri))
+    np.testing.assert_allclose(rec.t.numpy(), np.asarray(jrec.t), rtol=1e-6)
+    # BLEND at opacity 0.5: rays stop on every layer and on the box
+    depth = np.round(rec.t.numpy(), 1)
+    for z in (2.4, 2.7, 3.0, 4.5):
+        assert (depth == z).any(), z
+
+    ot, occ = TT.trace_occlusion(cfg, ts, t(o), t(d), t(tmin), t(smax),
+                                 rng_t)
+    oj, jocc = JT.trace_occlusion(jcfg, js, j(o), j(d), j(tmin), j(smax),
+                                  rng_j)
+    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj).astype(np.int64))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+    inside = (np.abs(o[:, :2]) < 2.0).all(1)
+    assert occ.numpy()[inside].any() and not occ.numpy()[inside].all()

@@ -187,3 +187,87 @@ def test_walk_kernel_matches_plain(cuda, name, leaf_size, instanced):
     for a, b in zip(out, ref):
         assert torch.equal(_bits(a), _bits(b))
     assert torch.equal(stats, ref_stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instanced", [False, True], ids=["flat", "instanced"])
+@pytest.mark.parametrize("leaf_size", [8, 64])
+def test_walk_kernel_seeded_matches_plain(cuda, leaf_size, instanced):
+    """walk_closest on primary_seed's rays: last frame's triangle re-tested
+    against rays a little off (render/direct.py _seed_tmax) bounds t_max
+    on most lanes, so the walk prunes from step 0.  Bitwise equal to
+    walk_ref with the counts, the same hits as without the seed, and no
+    more leaf events."""
+    from types import SimpleNamespace
+
+    from eidola_tpu_torch.render.config import RenderConfig
+    from eidola_tpu_torch.render.direct import _seed_tmax
+
+    if instanced:
+        bvh, rays, inst = _instanced_walk_case(cuda, leaf_size,
+                                               seed=leaf_size + 3)
+    else:
+        bvh, rays = _walk_case(cuda, leaf_size, seed=leaf_size + 2)
+        inst = None
+    R = rays.shape[1] * rays.shape[2]
+    o, d = rays[0:3].reshape(3, R).T, rays[3:6].reshape(3, R).T
+    tn = torch.full((R,), 1e-4, device=cuda)
+    tx = torch.full((R,), 1e8, device=cuda)
+    prev = TW.closest_hit_walk(bvh, o + 0.002, d, tn, tx)
+    scene = SimpleNamespace(bvh=bvh, inst=inst)
+    t_max0 = _seed_tmax(RenderConfig(primary_seed=True), scene, o, d,
+                        prev.tri)
+    assert 0.2 < float((t_max0 < 1e8).float().mean()) < 1.0
+    seeded = TW.pack_rays(o, d, tn, t_max0)
+    P = seeded.shape[1]
+    stats = torch.zeros((P, 2), dtype=torch.int32, device=cuda)
+    ref_stats = torch.zeros_like(stats)
+    base_stats = torch.zeros_like(stats)
+    out = TW.walk_closest(bvh.walk, bvh.leaf_blocks, seeded, 100_000,
+                          stats=stats, inst=inst)
+    ref = TW.walk_ref(bvh.walk, bvh.leaf_blocks, seeded, False, 100_000,
+                      group=1, stats=ref_stats, inst=inst)
+    base = TW.walk_closest(bvh.walk, bvh.leaf_blocks,
+                           TW.pack_rays(o, d, tn, tx), 100_000,
+                           stats=base_stats, inst=inst)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(stats, ref_stats)
+    assert torch.equal(out[1], base[1]) and torch.equal(out[0], base[0])
+    assert int(stats[:, 1].sum()) <= int(base_stats[:, 1].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_size", [8, 64])
+def test_walk_kernel_matches_brute_force(cuda, leaf_size):
+    """The walk kernel's closest and any hit against ops/intersect's
+    brute_force_closest on the card, on a small random scene: the same
+    triangle on >= 0.999 of rays (another only at an exact-t tie), t
+    within 1e-5 relative, occlusion equal."""
+    from eidola_tpu_torch.ops.intersect import brute_force_closest
+
+    rng = np.random.default_rng(leaf_size + 40)
+    c = rng.uniform(-2, 2, (600, 3)).astype(np.float32)
+    vn = [c + rng.normal(0, 0.3, (600, 3)).astype(np.float32)
+          for _ in range(3)]
+    bvh = TB.build_bvh(*vn, device=cuda, leaf_size=leaf_size)
+    v = [torch.from_numpy(a).to(cuda) for a in vn]
+    n = 2000
+    o = torch.from_numpy(rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+                         ).to(cuda)
+    d = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+                         ).to(cuda) - o
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    tn = torch.full((n,), 1e-4, device=cuda)
+    tx = torch.where(torch.arange(n, device=cuda) % 3 == 0, 4.0, 1e8)
+    rec = TW.closest_hit_walk(bvh, o, d, tn, tx)
+    occ = TW.any_hit_walk(bvh, o, d, tn, tx)
+    tri, t, _, _ = brute_force_closest(o, d, v[0], v[1] - v[0], v[2] - v[0],
+                                       tn, tx)
+    torch.cuda.synchronize()
+    hit = tri >= 0
+    assert 0.1 < float(hit.float().mean()) < 0.95
+    assert torch.equal(rec.tri >= 0, hit) and torch.equal(occ, hit)
+    assert float((rec.tri == tri).float().mean()) >= 0.999
+    assert torch.allclose(rec.t[hit], t[hit], rtol=1e-5)

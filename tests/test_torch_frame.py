@@ -143,3 +143,76 @@ def test_frame_state_carried_from_jax(cornell):
     for k in WORDS:
         assert (j[k].astype(np.int64) == p[k].astype(np.int64)).mean() >= 0.999
     assert np.abs(p["image"] - j["image"]).mean() <= 2e-3
+
+
+# ---- C1: the same comparison with a camera that orbits every frame ------
+
+ORBIT = 0.03
+
+
+def _orbit_frames(manip_cls, scene, cam, step, params, tm, state, conv,
+                  time_word, **kw):
+    """FRAMES frames on the headless app's set-up: the scene camera first,
+    then a manipulator orbit before each later frame."""
+    view_inv = np.asarray(conv(cam.view_inv))
+    pos = np.asarray(conv(cam.pos))
+    m = manip_cls(pos, pos - view_inv[:3, 2] * 3.0, aspect=W / H, **kw)
+    m._cam = cam
+    out = []
+    for i in range(FRAMES):
+        c = m.orbit(ORBIT, 0.0) if i else cam
+        state, o = step(scene, c, params._replace(time_word=time_word(i)),
+                        tm, state)
+        out.append(_record(state, o, conv))
+    return out
+
+
+@pytest.fixture(scope="module")
+def orbit_frames(cornell):
+    from eidola_tpu.scene.camera import CameraManipulator as JManip
+    from eidola_tpu_torch.scene.camera import CameraManipulator
+
+    scene, cam = cornell[:2]
+    cfg = jcfg.RenderConfig(**CFG)
+    j = _orbit_frames(JManip, scene, cam, j_make_step(cfg),
+                      jcfg.default_params(), jcfg.default_tonemap(),
+                      j_init(cfg, cam), np.asarray,
+                      lambda i: jnp.asarray(100 + i, jnp.uint32))
+    dev = torch.device("cpu")
+    tcam = interop.to_torch(cam, dev)
+    tcfg = RenderConfig(**CFG)
+    p = _orbit_frames(CameraManipulator, interop.to_torch(scene, dev), tcam,
+                      make_step(tcfg),
+                      interop.to_torch(jcfg.default_params(), dev),
+                      interop.to_torch(jcfg.default_tonemap(), dev),
+                      init_frame_state(tcfg, tcam), lambda a: a.numpy(),
+                      lambda i: torch.tensor(100 + i), device=dev)
+    return j, p
+
+
+@pytest.mark.parametrize("frame", range(FRAMES))
+def test_orbit_motion_and_gbuffer_match(orbit_frames, frame):
+    j, p = orbit_frames[0][frame], orbit_frames[1][frame]
+    for k in WORDS:
+        same = (j[k].astype(np.int64) == p[k].astype(np.int64)).mean()
+        assert same >= 0.999, (k, same)
+    assert (j["motion"].astype(np.int64) == p["motion"]).mean() >= 0.999
+    if frame:
+        # the reprojection is not the identity once the camera moved
+        own = np.stack(np.meshgrid(np.arange(H), np.arange(W),
+                                   indexing="ij"), -1)
+        ok = p["motion"][..., 0] >= 0
+        assert (p["motion"][ok] != own[ok]).any(-1).mean() > 0.1
+
+
+@pytest.mark.parametrize("frame", range(FRAMES))
+def test_orbit_temporal_gates_and_reset_match(orbit_frames, frame):
+    """The temporal gates' effect (the merged reservoirs' M, the winner's
+    visibility) and the accumulation reset on a moving camera."""
+    j, p = orbit_frames[0][frame], orbit_frames[1][frame]
+    assert (j["vis"] == p["vis"]).mean() >= 0.99
+    assert (j["num"] == p["num"]).mean() >= 0.99
+    close = np.isclose(p["weight"], j["weight"], rtol=1e-3, atol=1e-6)
+    assert close.mean() >= 0.99
+    assert float(p["accum_count"]) == float(j["accum_count"]) == 1.0
+    assert np.abs(p["image"] - j["image"]).mean() <= 2e-3

@@ -118,3 +118,71 @@ def test_pallas_frame_matches_xla_frame(port_frames):
     a, b = port_frames["pallas"][0], port_frames["xla"][0]
     err = np.abs(a - b).mean()
     assert err < 0.02, f"mini_grove pallas vs xla: {err:.4f}"
+
+
+# ---- C1: the GI frame on a camera that orbits every frame ------------------
+
+ORBIT = 0.03
+
+
+def _orbit(manip_cls, scene, cam, step, params, tm, state, conv, **kw):
+    """FRAMES frames on the headless app's set-up: the scene camera first,
+    then a manipulator orbit before each later frame.  Returns per frame
+    (hdr, motion, accum_count)."""
+    view_inv = np.asarray(conv(cam.view_inv))
+    pos = np.asarray(conv(cam.pos))
+    m = manip_cls(pos, pos - view_inv[:3, 2] * 3.0, aspect=1.0, **kw)
+    m._cam = cam
+    out = []
+    for i in range(FRAMES):
+        c = m.orbit(ORBIT, 0.0) if i else cam
+        state, o = step(scene, c, params, tm, state)
+        out.append((conv(o["hdr"]), conv(o["motion"]),
+                    float(conv(state.accum_count))))
+    return out
+
+
+@pytest.fixture(scope="module")
+def orbit_frames():
+    """{"jax": frames, "xla": frames, "pallas": frames}."""
+    from eidola_tpu.scene.camera import CameraManipulator as JManip
+    from eidola_tpu_torch.scene.camera import CameraManipulator
+
+    scene, cam = j_load_scene("mini_grove")
+    cfg = jcfg.RenderConfig(**CFG)
+    out = {"jax": _orbit(JManip, scene, cam, j_make_step(cfg),
+                         jcfg.default_params(), jcfg.default_tonemap(),
+                         j_init(cfg, cam), np.asarray)}
+    dev = torch.device("cpu")
+    tscene, tcam = load_scene("mini_grove", device=dev)
+    tcfg = RenderConfig(**CFG)
+    for trav in ("xla", "pallas"):
+        P.TRAV = trav
+        try:
+            out[trav] = _orbit(CameraManipulator, tscene, tcam,
+                               make_step(tcfg), default_params(device=dev),
+                               default_tonemap(device=dev),
+                               init_frame_state(tcfg, tcam),
+                               lambda a: a.numpy(), device=dev)
+        finally:
+            P.TRAV = "xla"
+    return out
+
+
+@pytest.mark.parametrize("trav", ["xla", "pallas"])
+def test_orbit_frame_matches_jax(orbit_frames, trav):
+    """Motion words on >= 99.9% of pixels every frame, the accumulation
+    restarting on every frame, and each frame's HDR within the goldens'
+    0.02 mean abs of JAX's."""
+    for f, ((jh, jm, jc), (ph, pm, pc)) in enumerate(
+            zip(orbit_frames["jax"], orbit_frames[trav])):
+        assert (jm.astype(np.int64) == pm).mean() >= 0.999, f
+        assert pc == jc == 1.0, f
+        assert np.isfinite(ph).all() and ph.mean() > 0.02
+        err = np.abs(ph - jh).mean()
+        assert err < 0.02, f"mini_grove orbit ({trav}) frame {f}: {err:.4f}"
+    own = np.stack(np.meshgrid(np.arange(64), np.arange(64), indexing="ij"),
+                   -1)
+    pm = orbit_frames[trav][-1][1]
+    ok = pm[..., 0] >= 0
+    assert (pm[ok] != own[ok]).any(-1).mean() > 0.1
