@@ -37,19 +37,46 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    instanced bulk apart by frame, frame 0's (no seed yet) and the seeded
    ones of frames 2-4 (t_max bounded on some lanes by the last frame's
    triangle), and prints the share of lanes each seed bounds;
-8. standin DI phase: bistro_standin at 1920x1080 with --no-denoise
+8. gltf phase: bistro_standin's parts written as a GLB (about 2.9M
+   instanced triangles: one glTF mesh per part, one primitive per
+   material, one node per instance, PNG textures, alpha-MASK leaf cards,
+   the scene's camera) and a 2048x1024 equirect .hdr (a sun-like hot
+   spot over a sky gradient, from a fixed seed), then the headless app
+   on them at 1920x1080 under EIDOLA_TRAV=pallas: `--scene standin.glb
+   -e env.hdr --frames 3 --save-state s.npz --out f.png`, then
+   `--load-state s.npz --frames 2`; checks that the scene is instanced
+   with the alpha HitTest on and >= 2.8M triangles, the env is the .hdr
+   with the firefly clamp 4x its integral, the walk kernels ran on the
+   instanced and the alpha BVH and no drain did, frame_idx goes 3 then
+   5, the image is finite and the PNG decodes (utils/png.py) to
+   1080x1920 RGB;
+9. viewer phase: the port's viewer in this process (app/viewer.start:
+   its render and worker threads, the HTTP server on 127.0.0.1:0) on
+   cornell at 1920x1080 under EIDOLA_TRAV=pallas; after a few frames
+   POST /scene drops in the GLB and the .hdr; /stats is polled until it
+   names the GLB with `busy` empty (a `busy` of "load failed",
+   "compile failed" or "render failed" fails the phase, as does a time
+   limit); then frames advance on the new scene, /frame.png decodes to
+   1080x1920, POST /input orbits (the served image changes and the
+   accumulation count goes back to 1), POST /pick hits a triangle of
+   the scene, POST /config turns denoise off and on, POST /param sets
+   the exposure, and /stats counts the loaded scene's triangles,
+   textures and lights; prints the full frames' and the preview frames'
+   times and counts, the PNG encode, the GLB's load on the worker, the
+   warm-up frames, the fps, the walk launches and the device monitor;
+10. standin DI phase: bistro_standin at 1920x1080 with --no-denoise
    --no-indirect under the default traversal, 2 frames: the instanced
    torch walk with the fused drains on object-space rays;
-9. mxu phase: the same DI frame under EIDOLA_MT=mxu, 2 frames: every
+11. mxu phase: the same DI frame under EIDOLA_MT=mxu, 2 frames: every
    closest-hit drain goes through mt_mxu, and neither the fused drains
    nor the walk kernels run;
-   each of phases 3-9 sets every launch count to 0 just before it and
+   each of phases 3-11 sets every launch count to 0 just before it and
    reads them just after, checks the image (shape, finite, in [0, 1],
    not black) and the accumulation count, that each kernel of its path
    was launched and that the kernels of the other paths were not, and
    keeps the arguments of each kernel's largest call (the walk kernels'
    largest instanced and largest flat call apart);
-10. kernel phase: each kernel on those arguments (the frames' own shapes:
+12. kernel phase: each kernel on those arguments (the frames' own shapes:
    leaf 64, the full bistro tables) against its plain torch version on
    the card, bitwise, with times from CUDA events: the whole wrapper
    call, the kernel alone (its bare launch on arguments already
@@ -59,22 +86,24 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    frame 4 and, beside it, frame 0's unseeded one with their steps and
    leaf events per packet, and the seeded call's own rays with t_max
    unbounded again: the seed's effect on the same rays, whose hits must
-   not change); plus the drain kernels on a synthetic case
+   not change; the gltf phase's largest instanced, occlusion and alpha-BVH
+   walks; the viewer phase's largest instanced and occlusion walks);
+   plus the drain kernels on a synthetic case
    with an invalid tail and exact-t ties, and on one with drain_case's
    edges (dets at the 1e-12 threshold and at 2^126, dead and all-hit
    warps), which the frames do not hold; for mt_any_fused and mt_mxu
    also what each call's data asks of the kernel (lanes alive, warp
    steps taken, triangles past the vote after the u test);
-11. goldens on the card: cornell, punctual, textured, hdr and alpha (the
+13. goldens on the card: cornell, punctual, textured, hdr and alpha (the
    HitTest on) at 64x64, max_depth=2, traversal_max_steps=1024, 4
    frames, through the walk kernel, each within 0.02 mean abs of
    tests/golden/*_64_d2_f4.npy;
-12. holds small DI frames on the card against the same frames through
+14. holds small DI frames on the card against the same frames through
    the plain versions on the CPU (cornell 32x32, stress 64x64);
-13. prints one JSON line with an entry per kernel and path (the
+15. prints one JSON line with an entry per kernel and path (the
    bistro_flat DI and GI frames, the standin frame, the interactive
-   frame, the standin DI frames with the fused and the mxu drains):
-   that phase's launches and
+   frame, the GLB frame, the viewer, the standin DI frames with the
+   fused and the mxu drains): that phase's launches and
    the kernel's error, times (`ms` the wrapper call, `kernel_ms` the
    kernel alone) and bound on the phase's largest call;
    then, last, {"ok": true, "device": {...}}.
@@ -87,6 +116,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -125,6 +155,9 @@ PEAK_BYTES = 3.35e12
 GOLDENS = {"alpha": "sunsky", "cornell": "sunsky", "hdr": "hdr",
            "punctual": "sunsky", "textured": "sunsky"}
 STANDIN_TRIS = (2.8e6, 3.0e6)   # 729 lots x (1,728 + 4 x ~560)
+GLTF = ["--size", "1920", "1080", "--quiet"]   # + the GLB, -e and frames
+ENV_SIZE = (1024, 2048)          # the .hdr's height x width
+VIEWER_S = 600.0                 # the viewer phase's time limit
 # Moller-Trumbore as a dot of coefficients and ray features (build_cmat):
 # the products by the nonzero coefficients (det 3, t 4, u 6, v 6) and
 # their sums, plus the epilogue: what the drain kernels compute.
@@ -456,6 +489,366 @@ def seed_effect(call, label) -> None:
           f"{ms[1]:.4f} ms; same winner on "
           f"{float((k_s == k_u).float().mean()):.6f} of the lanes",
           flush=True)
+
+
+def write_inputs(tmp: str) -> tuple[str, str]:
+    """standin.glb from bistro_standin's parts and env.hdr, a 2048x1024
+    equirect (a sun-like hot spot over a sky gradient, seed 11)."""
+    import numpy as np
+
+    from eidola_tpu_torch.models.scenes import write_standin_glb
+    from eidola_tpu_torch.scene.hdr import write_hdr
+
+    glb, hdr = os.path.join(tmp, "standin.glb"), os.path.join(tmp, "env.hdr")
+    t0 = time.perf_counter()
+    size = write_standin_glb(glb)
+    glb_s = time.perf_counter() - t0
+    h, w = ENV_SIZE
+    theta = (np.arange(h)[:, None] + 0.5) / h * np.pi     # from the zenith
+    phi = (np.arange(w)[None, :] + 0.5) / w * 2.0 * np.pi
+    sky = np.clip(np.cos(theta), 0.0, 1.0)[..., None]
+    img = (np.asarray([0.25, 0.32, 0.45]) + sky * np.asarray([0.1, 0.2, 0.4])
+           ) * np.ones((h, w, 1))
+    ang = np.arccos(np.clip(np.sin(theta) * np.sin(0.9) * np.cos(phi - 2.0)
+                            + np.cos(theta) * np.cos(0.9), -1.0, 1.0))
+    img = img + (np.exp(-(ang / 0.02) ** 2)[..., None]
+                 * np.asarray([9000.0, 7600.0, 5200.0]))
+    img = img * np.random.default_rng(11).uniform(0.97, 1.03, (h, w, 1))
+    t0 = time.perf_counter()
+    write_hdr(hdr, img.astype(np.float32))
+    print(f"gltf: wrote {glb} ({size} bytes) in {glb_s:.2f}s and a "
+          f"{w}x{h} .hdr ({os.path.getsize(hdr)} bytes) in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    return glb, hdr
+
+
+def gltf_phase(glb: str, hdr: str, tmp: str):
+    """The headless app on the GLB and the .hdr, 3 frames with a saved
+    state, then 2 more from it."""
+    import numpy as np
+
+    from eidola_tpu_torch.utils.png import decode_png
+
+    ckpt, png = os.path.join(tmp, "s.npz"), os.path.join(tmp, "f.png")
+    args = ["--scene", glb, "-e", hdr] + GLTF
+    walks = walk_capture()
+    launches, res = run_phase(
+        "gltf (pallas)", args + ["--frames", "3", "--save-state", ckpt,
+                                 "--out", png],
+        (1080, 1920, 3), 3, "pallas", [walks],
+        ("walk_closest+inst", "walk_any+inst", "walk_closest"), DRAINS + MXU)
+    check_standin(res)
+    scene = res["scene"]
+    clamp = np.float32(4.0 * float(scene.env.integral))
+    if scene.inst is None or res["env_mode"] != "hdr" or \
+            np.float32(res["firefly_clamp"]) != clamp:
+        fail(f"gltf: instanced {scene.inst is not None}, env_mode "
+             f"{res['env_mode']}, firefly clamp {res['firefly_clamp']} (want "
+             f"instanced, hdr, {clamp})")
+    if scene.env.image.shape[:2] != ENV_SIZE or res["frame_idx"] != 3:
+        fail(f"gltf: env {tuple(scene.env.image.shape)}, frame_idx "
+             f"{res['frame_idx']} (want {ENV_SIZE}, 3)")
+    with open(png, "rb") as f:
+        rgba = decode_png(f.read())
+    if rgba.shape != (1080, 1920, 4) or (rgba[..., 3] != 255).any():
+        fail(f"gltf: --out decodes to {rgba.shape}, not 1080x1920 RGB")
+    check_calls("gltf", launches, walks.sizes)
+    ms = res["ms_per_frame"]
+    del res, scene
+    again = walk_capture()
+    _, res = run_phase(
+        "gltf (pallas, --load-state)", args + ["--frames", "2",
+                                               "--load-state", ckpt],
+        (1080, 1920, 3), 2, "pallas", [again],
+        ("walk_closest+inst", "walk_any+inst", "walk_closest"), DRAINS + MXU,
+        accum=5)
+    if res["frame_idx"] != 5:
+        fail(f"gltf: frame_idx {res['frame_idx']} after --load-state and 2 "
+             f"frames, not 5")
+    print(f"gltf: frame_idx 3 after the first run, 5 after the reload; "
+          f"the PNG of the last frame decodes to {rgba.shape[:2]}; firefly "
+          f"clamp {clamp} = 4 x the env integral", flush=True)
+    return walks, launches, ms
+
+
+class ViewerWatch:
+    """While active, records each frame the viewer's render thread renders
+    (its config, camera and accumulation count: references, no sync);
+    the worker's warm-up frames are left out."""
+
+    def __init__(self):
+        self.frames = []
+        self.render_thread = None
+
+    def __enter__(self):
+        import threading
+
+        from eidola_tpu_torch.app import viewer
+
+        self.orig = viewer.make_step
+
+        def make_step(cfg):
+            step = self.orig(cfg)
+
+            def watched(scene, cam, params, tm, state, timer=None):
+                state, out = step(scene, cam, params, tm, state, timer)
+                if threading.current_thread() is self.render_thread:
+                    self.frames.append((cfg, cam, state.accum_count))
+                return state, out
+            return watched
+
+        viewer.make_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        from eidola_tpu_torch.app import viewer
+
+        viewer.make_step = self.orig
+
+    def full_with(self, cfg, cam=None) -> list:
+        return [a for c, k, a in list(self.frames)
+                if c == cfg and (cam is None or k is cam)]
+
+
+class ViewerClient:
+    """HTTP requests to a running viewer, and waits bounded by the phase's
+    time limit that fail on a `busy` reporting a failure."""
+
+    def __init__(self, vs, port: int):
+        self.vs, self.base = vs, f"http://127.0.0.1:{port}"
+        self.t_end = time.monotonic() + VIEWER_S
+
+    def wait(self, cond, what) -> None:
+        vs = self.vs
+        while not cond():
+            if vs.busy.startswith(("load failed", "compile failed",
+                                   "render failed")):
+                fail(f"viewer: {vs.busy}")
+            if time.monotonic() > self.t_end:
+                fail(f"viewer: no {what} within {VIEWER_S:.0f} s (busy "
+                     f"{vs.busy!r}, frame {vs.frame})")
+            time.sleep(0.02)
+
+    def get(self, path) -> bytes:
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=120) as r:
+            return r.read()
+
+    def post(self, path, body) -> bytes:
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, method="POST",
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            if r.status != 200:
+                fail(f"viewer: POST {path} answered {r.status}")
+            return r.read()
+
+    def full_png(self):
+        """The served image once it is a full frame (a preview is a
+        quarter of the extent, upscaled by 4)."""
+        from eidola_tpu_torch.utils.png import decode_png
+
+        img = []
+
+        def full():
+            img[:] = [decode_png(self.get("/frame.png"))]
+            return img[0].shape[:2] == (1080, 1920)
+
+        self.wait(full, "full frame served")
+        return img[0]
+
+
+def viewer_phase(glb: str, hdr: str, headless_ms: float):
+    """The viewer, in this process, takes the GLB and the .hdr through
+    POST /scene and answers every endpoint on it."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from eidola_tpu_torch.app import viewer as V
+    from eidola_tpu_torch.ops import packets
+
+    packets.TRAV = "pallas"
+    walks, watch = walk_capture(), ViewerWatch()
+    report = {}
+    try:
+        with walks, watch:
+            _reset_launches()
+            vs, srv, threads = V.start(["--scene", "cornell", "--size",
+                                        "1920", "1080", "--max-depth", "4",
+                                        "--device", "cuda", "--port", "0"])
+            watch.render_thread = threads[0]
+            threads.append(threading.Thread(target=srv.serve_forever,
+                                            daemon=True))
+            threads[-1].start()
+            try:
+                report = viewer_steps(ViewerClient(vs, srv.server_address[1]),
+                                      watch, glb, hdr)
+            finally:
+                vs.stop = True
+                srv.shutdown()
+                srv.server_close()
+                for t in threads:
+                    t.join(timeout=120)
+            if any(t.is_alive() for t in threads):
+                fail("viewer: a thread did not stop")
+            torch.cuda.synchronize()
+            launches = _launches()
+    finally:
+        packets.TRAV = "xla"
+    sv = report["serving"]
+    full, prev = sv["full"], sv["preview"]
+    print(f"viewer: the GLB loaded on the worker in {vs.load_s:.2f}s, "
+          f"swapped (loaded and warmed up) {report['swap_s']:.2f}s after "
+          f"POST /scene; the worker's warm-up frames since (ms): "
+          + ", ".join(f"{x:.1f}" for x in report["warm"]), flush=True)
+    print(f"viewer: while serving {json.dumps(sv['served'])} requests: "
+          f"{sv['frames']} full frames and {sv['previews']} preview frames "
+          f"({report['preview_size']}); full frame (step + copy to the "
+          f"host) median {np.median(full):.1f} ms, mean {np.mean(full):.1f} "
+          f"(" + ", ".join(f"{x:.1f}" for x in full) + f") against the "
+          f"headless gltf phase's {headless_ms:.1f} ms; preview (step, "
+          f"copy, encode) median {np.median(prev) if prev else 0.0:.1f} ms ("
+          + ", ".join(f"{x:.1f}" for x in prev) + f"); the full frame's "
+          f"PNG encode in the loop median {np.median(sv['png']):.1f} ms ("
+          + ", ".join(f"{x:.1f}" for x in sv["png"]) + ")", flush=True)
+    print(f"viewer: on the GLB in all {report['frames']} full frames and "
+          f"{report['previews']} preview frames; a served 1920x1080 frame "
+          f"({report['png_bytes']} bytes) encoded again outside the loop: "
+          f"the codec {report['enc_ms']['codec']:.1f} ms, with the [0, 1] "
+          f"to uint8 step as in the loop {report['enc_ms']['frame']:.1f} "
+          f"ms; /stats fps {report['fps']:.3f}; "
+          f"pick {report['pick']}; walk launches "
+          + json.dumps({k: launches[k] for k in WALKS}), flush=True)
+    print(f"viewer: {report['monitor']}", flush=True)
+    for name in WALKS:
+        if launches[name] <= 0 or name + "+inst" not in walks.args:
+            fail(f"viewer: {name} was never launched on the instanced BVH")
+    if max(launches[k] for k in DRAINS + MXU) != 0:
+        fail(f"viewer: a drain kernel ran under pallas ({launches})")
+    check_calls("viewer", launches, walks.sizes)
+    return walks
+
+
+def viewer_steps(client: ViewerClient, watch: ViewerWatch, glb: str,
+                 hdr: str) -> dict:
+    """The viewer phase's requests and checks, on a running viewer."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from eidola_tpu_torch.app import viewer as V
+    from eidola_tpu_torch.utils.monitor import DeviceMonitor
+    from eidola_tpu_torch.utils.png import decode_png, encode_png
+
+    vs, wait, get, post = client.vs, client.wait, client.get, client.post
+    wait(lambda: vs.frame >= 3, "first 3 frames")
+    if decode_png(get("/frame.png")).shape[:2] != (1080, 1920):
+        fail("viewer: cornell's frame is not 1080x1920")
+    n_warm = len(vs.times["warm"])
+    post("/scene", {"scene": glb, "hdr": hdr})
+    t0 = time.perf_counter()
+    # swapped: the GLB is the scene and its config is warmed up
+    wait(lambda: json.loads(get("/stats"))["scene"] == glb
+         and vs.desired_cfg() in vs.ready_cfgs, "scene swap")
+    swap_s = time.perf_counter() - t0
+    n0, p0 = vs.frame, vs.preview_frames
+    # settled: 3 frames on the GLB, the preview variant warmed up if the
+    # frames engaged it, the worker idle
+    wait(lambda: vs.frame >= n0 + 3 and not vs.busy
+         and not vs.want_cfgs - vs.ready_cfgs, "3 frames on the GLB")
+    scene, cfg = vs.scene, vs.base_cfg
+    if not cfg.alpha_geometry or cfg.env_mode != "hdr" or scene.inst is None:
+        fail(f"viewer: alpha_geometry {cfg.alpha_geometry}, env_mode "
+             f"{cfg.env_mode}, instanced {scene.inst is not None} on the GLB")
+    # serving: 6 full frames while a client fetches /frame.png as the
+    # page does (again 60 ms after one arrives) and /stats every second
+    for k in ("full", "preview", "png"):
+        vs.times[k].clear()
+    n1, p1 = vs.frame, vs.preview_frames
+    served = {"frame.png": 0, "stats": 0}
+    done = threading.Event()
+
+    def client_loop():
+        t_stats = 0.0
+        while not done.is_set():
+            get("/frame.png")
+            served["frame.png"] += 1
+            time.sleep(0.06)
+            if time.monotonic() - t_stats > 1.0:
+                get("/stats")
+                served["stats"] += 1
+                t_stats = time.monotonic()
+
+    browser = threading.Thread(target=client_loop, daemon=True)
+    browser.start()
+    try:
+        wait(lambda: vs.frame >= n1 + 6, "6 frames while serving")
+    finally:
+        done.set()
+        browser.join(timeout=120)
+    serving = {"full": list(vs.times["full"]),
+               "preview": list(vs.times["preview"]),
+               "png": list(vs.times["png"]), "frames": vs.frame - n1,
+               "previews": vs.preview_frames - p1, "served": dict(served)}
+    # orbit: a new camera, the image changes, the accumulation restarts
+    wait(lambda: vs.accum >= 2.0, "accumulation")
+    before = client.full_png()
+    post("/input", {"type": "orbit", "dx": 40})
+    cam = vs.cam
+    wait(lambda: watch.full_with(cfg, cam), "a frame after the orbit")
+    accum = float(watch.full_with(cfg, cam)[0])
+    n1 = vs.frame
+    wait(lambda: vs.frame >= n1 + 1, "the frame after the orbit served")
+    after = client.full_png()
+    if accum != 1.0 or np.array_equal(before, after):
+        fail(f"viewer: after the orbit the accumulation count is {accum} "
+             f"(want 1); image changed: {not np.array_equal(before, after)}")
+    pick = json.loads(post("/pick", {"fy": 0.5, "fx": 0.5}))
+    n_tris = int(scene.bvh.n_tris)
+    if not pick["hit"] or not 0 <= pick["tri_id"] < n_tris:
+        fail(f"viewer: pick at the centre {pick}")
+    for on in (False, True):
+        post("/config", {"denoise": on})
+        want = dataclasses.replace(cfg, denoise=on)
+        seen = len(watch.full_with(want))
+        wait(lambda: len(watch.full_with(want)) > seen,
+             f"a frame with denoise {on}")
+    post("/param", {"name": "exposure", "value": 1.5})
+    if float(vs.tm.exposure) != 1.5:
+        fail("viewer: POST /param did not set the exposure")
+    stats = json.loads(get("/stats"))
+    want = {"triangles": n_tris,
+            "textures": int(scene.textures.data.shape[0]),
+            "punctual_lights": int(scene.lights.num_punc),
+            "emissive_triangles": int(scene.lights.num_trig)}
+    got = {k: stats[k] for k in want}
+    if got != want or want["textures"] != 6:
+        fail(f"viewer: /stats {got}, the scene {want} (6 textures)")
+    png = get("/frame.png")
+    u8 = np.ascontiguousarray(decode_png(png)[..., :3])
+    img01 = u8.astype(np.float32) / 255.0
+    enc_ms = {"codec": [], "frame": []}
+    for _ in range(5):
+        for key, fn in (("codec", lambda: encode_png(u8)),
+                        ("frame", lambda: V._encode_png(img01))):
+            t1 = time.perf_counter()
+            fn()
+            enc_ms[key].append((time.perf_counter() - t1) * 1e3)
+    mon = DeviceMonitor("cuda", interval_s=0.0)
+    mon.refresh()
+    pcfg = V._descaled(cfg, 4)
+    return {"swap_s": swap_s, "warm": list(vs.times["warm"])[n_warm:],
+            "frames": vs.frame - n0, "previews": vs.preview_frames - p0,
+            "preview_size": f"{pcfg.width}x{pcfg.height}",
+            "serving": serving,
+            "enc_ms": {k: float(np.median(v)) for k, v in enc_ms.items()},
+            "png_bytes": len(png), "fps": stats["fps"], "pick": pick,
+            "monitor": mon.summary()}
 
 
 def _equal_bits(got, want) -> float:
@@ -893,6 +1286,15 @@ def main() -> None:
     check_interactive(it, frames, it_walks)
     del it, frames
     check_calls("interactive", it_launches, it_walks.sizes)
+    torch.cuda.empty_cache()
+    # the scene pipeline: a GLB and an .hdr through the headless app, then
+    # dropped into the viewer
+    with tempfile.TemporaryDirectory(prefix="eidola_smoke_") as tmp:
+        glb, hdr = write_inputs(tmp)
+        gl_walks, _, gl_ms = gltf_phase(glb, hdr, tmp)
+        torch.cuda.empty_cache()
+        vw_walks = viewer_phase(glb, hdr, gl_ms)
+    torch.cuda.empty_cache()
     sd_cap = drain_capture()
     sd_launches, sd = run_phase(
         "standin DI (xla)", STANDIN_DI, (1080, 1920, 3), 2, "xla",
@@ -931,6 +1333,22 @@ def main() -> None:
                "interactive frame-0 primary (unseeded), instanced")
     seed_effect(it_walks.args[SEEDED], "interactive frame 4, instanced")
     del it_walks
+    gl_times = {k: check_walk(k.split("+")[0], gl_walks.args[k], label)
+                for k, label in (
+                    ("walk_closest+inst", "largest GLB instanced traversal"),
+                    ("walk_any+inst",
+                     "largest GLB instanced occlusion traversal"),
+                    ("walk_closest", "largest GLB alpha-BVH traversal"))}
+    gl_sizes = gl_walks.sizes
+    del gl_walks
+    vw_times = {k: check_walk(k.split("+")[0], vw_walks.args[k], label)
+                for k, label in (
+                    ("walk_closest+inst",
+                     "largest viewer instanced traversal"),
+                    ("walk_any+inst",
+                     "largest viewer instanced occlusion traversal"))}
+    vw_sizes = vw_walks.sizes
+    del vw_walks
     torch.cuda.empty_cache()
     sd_times = {name: check_drain(
         name, sd_cap.args[name][0],
@@ -958,6 +1376,13 @@ def main() -> None:
                 + ("seeded primary, instanced BVH" if k == "walk_closest"
                    else "instanced BVH"), it_launches[k], it_times[k])
                for k in WALKS]
+            + [(k.split("+")[0], "GLB standin + .hdr 1920x1080 pallas "
+                "(headless), " + ("instanced BVH" if "+" in k
+                                  else "alpha BVH"),
+                len(gl_sizes[k]), gl_times[k]) for k in gl_times]
+            + [(k.split("+")[0], "viewer: GLB standin + .hdr 1920x1080 "
+                "pallas, instanced BVH", len(vw_sizes[k]), vw_times[k])
+               for k in vw_times]
             + [(k, "standin DI 1920x1080 xla", sd_launches[k], sd_times[k])
                for k in DRAINS]
             + [(k, "standin DI 1920x1080 mxu", mx_launches[k], times[k])

@@ -7,8 +7,12 @@ Usage:
 renders the default frame (ReSTIR DI + GI, a-trous denoise) on the card;
 `--device cpu` renders on the CPU instead, and nothing falls back from
 CUDA to the CPU.  `--no-indirect` / `--no-denoise` drop those stages.
-The flags are the JAX app's but for -e/--env, --save-state and
---load-state: `--orbit RAD` moves the camera each frame after the first
+The flags are the JAX app's: `--scene` takes a registry name or a
+.gltf/.glb path, `-e/--env` an .hdr environment (the firefly clamp
+becomes 4x its integral), `--save-state` / `--load-state` an npz of the
+FrameState (utils/checkpoint.py; either package's file loads in the
+other), `--out` a PNG of the last frame (utils/png.py, no PIL),
+`--orbit RAD` moves the camera each frame after the first
 (CameraManipulator, so temporal reuse reprojects and accumulation
 resets), `--restir` takes all five modes, `--shadow-cadence N` and
 `--primary-seed` turn on visibility reuse and the seeded primary walk,
@@ -35,7 +39,11 @@ from ..models.scenes import load_scene
 from ..render.config import RenderConfig, default_params, default_tonemap
 from ..render.frame import init_frame_state, make_step
 from ..scene.camera import CameraManipulator, advance
-from ..scene.data import ALPHA_OPAQUE
+from ..scene.data import ALPHA_OPAQUE, attach_env, env_params
+from ..scene.hdr import build_env_map, load_hdr
+from ..utils.checkpoint import load_pytree, save_pytree
+from ..utils.monitor import DeviceMonitor
+from ..utils.png import encode_png
 from ..utils.profiler import StageTimer, trace
 
 DEBUG_MODES = {
@@ -51,9 +59,12 @@ def build_argparser() -> argparse.ArgumentParser:
         prog="eidola_tpu_torch.app.headless",
         description="EIDOLA headless path tracer on PyTorch + CUDA")
     p.add_argument("-f", "--scene", default="cornell",
-                   help="registry scene name (cornell, punctual, textured, "
-                        "hdr, stress, alpha, mini_grove, bistro_flat, "
-                        "bistro_standin, bistro_hdr)")
+                   help="registry scene name (cornell, boxes, punctual, "
+                        "textured, hdr, stress, alpha, mini_grove, "
+                        "bistro_flat, bistro_standin, bistro_hdr) or a "
+                        ".gltf/.glb path")
+    p.add_argument("-e", "--env", default=None,
+                   help=".hdr environment map (default: the scene's own)")
     p.add_argument("--size", type=int, nargs="+", default=[512],
                    help="WIDTH [HEIGHT] render extent")
     p.add_argument("--frames", type=int, default=16)
@@ -86,6 +97,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--primary-seed", action="store_true",
                    help="seed the primary walk's t_max by re-testing last "
                         "frame's hit triangle per pixel")
+    p.add_argument("--save-state", default=None,
+                   help="write the FrameState checkpoint npz after the run")
+    p.add_argument("--load-state", default=None,
+                   help="resume the FrameState from a checkpoint npz")
     p.add_argument("--profile-trace", default=None,
                    help="directory for a torch.profiler trace of one extra "
                         "frame (its kernel summary joins the output)")
@@ -130,6 +145,17 @@ def _pivot_from_cam(cam) -> np.ndarray:
     return cam.pos.cpu().numpy() + fwd * 3.0
 
 
+def alpha_geometry(scene) -> bool:
+    """The alpha HitTest is on exactly when the scene has an alpha-tested
+    material (a static switch, as in the JAX app)."""
+    return bool((scene.materials.alpha_mode != ALPHA_OPAQUE).any())
+
+
+def to_u8(img01: np.ndarray) -> np.ndarray:
+    """[0, 1] image -> uint8, as the JAX app quantises its PNG."""
+    return (np.clip(img01, 0.0, 1.0) * 255).astype(np.uint8)
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -154,6 +180,9 @@ def run(argv=None) -> dict:
 
     t0 = time.perf_counter()
     scene, cam = load_scene(args.scene, device=device)
+    if args.env:
+        scene = attach_env(scene, build_env_map(load_hdr(args.env),
+                                                device=device))
     _sync(device)
     load_s = time.perf_counter() - t0
     log(f"scene+BVH: {load_s:.1f}s")
@@ -168,16 +197,13 @@ def run(argv=None) -> dict:
         debug_mode=DEBUG_MODES[args.debug],
         tonemap_kind={"uncharted2": 0, "hejl": 1, "aces": 2}[args.tonemap],
         texture_mips=not args.no_texture_mips,
-        # the alpha HitTest only where the scene needs it (static switch)
-        alpha_geometry=bool(
-            (scene.materials.alpha_mode != ALPHA_OPAQUE).any()),
+        alpha_geometry=alpha_geometry(scene),
         shadow_cadence=args.shadow_cadence,
         primary_seed=args.primary_seed,
     )
     params = default_params(device=device)
     if scene.env is not None:
-        # firefly clamp = 4 x env integral (ref sample_example.cpp:104)
-        params = params._replace(firefly_clamp=4.0 * scene.env.integral)
+        params = env_params(params, scene.env)
     tm = default_tonemap(device=device)._replace(
         auto_exposure=torch.tensor(args.auto_exposure, device=device),
         exposure=torch.tensor(args.exposure, dtype=torch.float32,
@@ -186,8 +212,11 @@ def run(argv=None) -> dict:
                               aspect=w / h, device=device)
     manip._cam = cam             # the scene's framing until the first move
     state = init_frame_state(cfg, cam)
+    if args.load_state:
+        state = load_pytree(args.load_state, state)
     step = make_step(cfg)
     timer = StageTimer(device)
+    mon = DeviceMonitor(device)
 
     frame_ms = []
     outputs = None
@@ -200,6 +229,7 @@ def run(argv=None) -> dict:
                               timer=timer if i or args.frames == 1 else None)
         _sync(device)
         frame_ms.append((time.perf_counter() - t1) * 1e3)
+        mon.refresh()
         log(f"frame {i}: {frame_ms[-1]:.1f} ms")
 
     steady = frame_ms[1:] or frame_ms
@@ -218,19 +248,22 @@ def run(argv=None) -> dict:
         img = resize_bilinear(img, full_h, full_w)
     img = img.cpu().numpy()
     if args.out:
-        from PIL import Image
-
-        Image.fromarray((np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
-                        ).save(args.out)
+        with open(args.out, "wb") as f:
+            f.write(encode_png(to_u8(img)))
     if args.hdr_out:
         np.save(args.hdr_out, outputs["hdr"].cpu().numpy())
+    if args.save_state:
+        save_pytree(args.save_state, state)
+    log(mon.summary())
     stages = {k: v / len(steady) for k, v in timer.summary().items()}
     summary = {
         "scene": args.scene, "width": w, "height": h, "frames": args.frames,
         "device": str(device), "load_s": load_s,
         "ms_per_frame": float(np.mean(steady)), "frame_ms": frame_ms,
         "stage_ms_per_frame": stages, "image_mean": float(img.mean()),
-        "alpha_geometry": cfg.alpha_geometry,
+        "alpha_geometry": cfg.alpha_geometry, "env_mode": cfg.env_mode,
+        "firefly_clamp": float(params.firefly_clamp),
+        "frame_idx": int(state.frame_idx),
         "n_tris": int(scene.bvh.n_tris),
         "n_leaves": int(scene.bvh.leaf_blocks.shape[0]),
         "profile": profile,

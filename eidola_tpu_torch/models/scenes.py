@@ -1,6 +1,6 @@
-"""Procedural scenes + registry (port of eidola_tpu/models/scenes.py:
-cornell, punctual, textured, hdr, stress, alpha, mini_grove,
-bistro_flat, bistro_standin, bistro_hdr)."""
+"""Procedural scenes + registry (port of eidola_tpu/models/scenes.py,
+all eleven: cornell, boxes, punctual, textured, hdr, stress, alpha,
+mini_grove, bistro_flat, bistro_standin, bistro_hdr)."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,6 +9,7 @@ import torch
 from ..scene.camera import Camera, make_camera
 from ..scene.data import (ALPHA_MASK, SceneData, attach_env, default_sunsky,
                           upload_scene, upload_scene_instanced)
+from ..scene.gltf import load_gltf_scene, write_glb
 from ..scene.hdr import build_env_map
 
 _FACES = [
@@ -251,6 +252,26 @@ def cornell_box(light_scale: float = 1.0, *, device):
     return scene, cam
 
 
+def boxes_sunsky(*, device):
+    """Outdoor boxes under procedural sun & sky (no area lights)."""
+    ground = {"base_color": [0.55, 0.55, 0.5, 1.0], "roughness": 0.95}
+    blue = {"base_color": [0.2, 0.3, 0.8, 1.0], "roughness": 0.4}
+    gold = {"base_color": [1.0, 0.77, 0.34, 1.0], "metallic": 1.0,
+            "roughness": 0.25}
+    parts = [
+        (quad_tris([-8, 0, -8], [8, 0, -8], [8, 0, 8], [-8, 0, 8]), 0),
+        (box_tris([-0.9, 1.0, 0], [0.5, 1.0, 0.5]), 1),
+        (box_tris([0.9, 0.5, 0.4], [0.5, 0.5, 0.5]), 2),
+        (uv_sphere([0.1, 0.45, -1.2], 0.45), 1),
+    ]
+    tris, mats = _concat(parts)
+    scene = upload_scene(tris[:, 0], tris[:, 1], tris[:, 2], device=device,
+                         mat_ids=mats, materials=[ground, blue, gold])
+    cam = make_camera(eye=[0, 1.6, 4.5], center=[0, 0.8, 0], fovy_deg=50.0,
+                      device=device)
+    return scene, cam
+
+
 def punctual_demo(*, device):
     """Point lights, no environment."""
     white = {"base_color": [0.8, 0.8, 0.8, 1.0], "roughness": 0.7}
@@ -419,11 +440,13 @@ def bistro_flat(target_mtris: float = 2.83, *, device):
     return scene, cam
 
 
-def bistro_standin(target_mtris: float = 2.83, *, device):
-    """The JAX bench's headline scene: >= target_mtris million instanced
-    triangles of textured tessellated buildings (base colour + normal
-    maps), instanced trees with alpha-MASK leaf cards and a textured
-    street, viewed down a street canyon under sun & sky."""
+def standin_parts(target_mtris: float = 2.83):
+    """What bistro_standin is made of, on the host: (meshes, instances,
+    materials, textures, (eye, center, fovy_deg)) as
+    upload_scene_instanced and make_camera take them.  Meshes: the
+    street, four tessellated buildings and two trees (bark, then
+    alpha-MASK leaf cards); one building and four trees per lot, lots
+    enough for >= target_mtris million instanced triangles."""
     rng = np.random.default_rng(7)
     target = int(target_mtris * 1e6)
     tex = _bench_textures()
@@ -490,11 +513,30 @@ def bistro_standin(target_mtris: float = 2.83, *, device):
                                   yaw(rng.uniform(0, 2 * np.pi),
                                       rng.uniform(0.7, 1.5), tx, 0.0, tz)))
 
+    view = ([0.0, 5.5, n_lots * lot * 0.52], [0.0, 3.0, 0.0], 55.0)
+    return meshes, instances, materials, tex_list, view
+
+
+def bistro_standin(target_mtris: float = 2.83, *, device):
+    """The JAX bench's headline scene: >= target_mtris million instanced
+    triangles of textured tessellated buildings (base colour + normal
+    maps), instanced trees with alpha-MASK leaf cards and a textured
+    street, viewed down a street canyon under sun & sky."""
+    meshes, instances, materials, textures, (eye, center, fovy) = \
+        standin_parts(target_mtris)
     scene = upload_scene_instanced(meshes, instances, device=device,
-                                   materials=materials, textures=tex_list)
-    cam = make_camera(eye=[0.0, 5.5, n_lots * lot * 0.52],
-                      center=[0.0, 3.0, 0.0], fovy_deg=55.0, device=device)
-    return scene, cam
+                                   materials=materials, textures=textures)
+    return scene, make_camera(eye=eye, center=center, fovy_deg=fovy,
+                              device=device)
+
+
+def write_standin_glb(path: str, target_mtris: float = 2.83) -> int:
+    """bistro_standin's parts as a GLB (scene/gltf.py:write_glb): one glTF
+    mesh per part, one primitive per material, one node per instance,
+    PNG textures, the scene's camera.  Returns the file's size."""
+    meshes, instances, materials, textures, view = standin_parts(
+        target_mtris)
+    return write_glb(path, meshes, instances, materials, textures, view)
 
 
 def alpha_demo(*, device):
@@ -594,6 +636,7 @@ def mini_grove(*, device):
 
 _REGISTRY = {
     "cornell": cornell_box,
+    "boxes": boxes_sunsky,
     "punctual": punctual_demo,
     "textured": textured_demo,
     "hdr": hdr_env_demo,
@@ -607,7 +650,10 @@ _REGISTRY = {
 
 
 def load_scene(name: str, *, device, **kwargs) -> tuple[SceneData, Camera]:
-    """Scene front door by registry name."""
+    """Scene front door: registry name or a .gltf/.glb path (ref
+    SampleExample::loadScene, sample_example.cpp:82-92)."""
+    if name.endswith((".gltf", ".glb")):
+        return load_gltf_scene(name, device=device, **kwargs)
     if name not in _REGISTRY:
         raise KeyError(f"unknown scene '{name}'; the port has "
                        f"{sorted(_REGISTRY)}")

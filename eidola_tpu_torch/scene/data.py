@@ -27,6 +27,7 @@ ALPHA_OPAQUE = 0
 ALPHA_MASK = 1
 ALPHA_BLEND = 2
 
+LIGHT_POINT = 0
 LIGHT_DIRECTIONAL = 1
 LIGHT_SPOT = 2
 
@@ -640,5 +641,15 @@ def upload_scene_instanced(meshes: list[dict], instances, *, device,
 
 def attach_env(scene: SceneData, env: EnvMap) -> SceneData:
     """Swap the HDR environment on a loaded scene (as the JAX package's
-    attach_env; ref sample_example.cpp:97-106)."""
+    attach_env; ref sample_example.cpp:97-106).  Callers that hold
+    RenderParams pass them through `env_params` afterwards."""
     return scene._replace(env=env)
+
+
+def env_params(params, env: EnvMap):
+    """Re-derive the env-dependent RenderParams after an HDR (re)load:
+    fireflyClampThreshold = 4 x the env's luminance integral (ref
+    SampleExample::loadEnvironmentHdr, sample_example.cpp:104)."""
+    clamp = params.firefly_clamp
+    return params._replace(firefly_clamp=torch.tensor(
+        4.0 * float(env.integral), dtype=torch.float32, device=clamp.device))

@@ -1,12 +1,13 @@
-"""HDR environment importance sampling (port of the device half of
-eidola_tpu/scene/hdr.py; ref src/hdr_sampling.cpp:107-242,
+"""HDR environment: the Radiance .hdr codec and importance sampling
+(port of eidola_tpu/scene/hdr.py; ref src/hdr_sampling.cpp:56-242,
 shaders/env_sampling.glsl:38-99).
 
-Load time (host numpy): each texel of an equirect image is weighted by
-luminance x solid angle and one alias table is built over all texels.
-Device side: sampling is two gathers (alias redirect) and a uniform
-direction within the chosen texel; evaluation is a bilinear lookup by
-spherical uv.  The .hdr codec stays ROADMAP A11.
+Load time (host numpy): `load_hdr` reads a Radiance file (flat and
+new-style RLE scanlines; a PNG through utils/png.py), and each texel of
+the equirect image is weighted by luminance x solid angle into one alias
+table over all texels.  Device side: sampling is two gathers (alias
+redirect) and a uniform direction within the chosen texel; evaluation is
+a bilinear lookup by spherical uv.
 """
 from __future__ import annotations
 
@@ -21,6 +22,93 @@ from ..utils.transfer import to_device
 from .data import EnvMap
 
 _LUM = np.asarray([0.2126, 0.7152, 0.0722])
+
+
+def load_hdr(path: str) -> np.ndarray:
+    """Read a Radiance .hdr into (H, W, 3) linear RGB, as the JAX
+    package's load_hdr computes it, bit for bit (its RGBE scale is
+    float64, and so is the result).  A PNG is read as 8-bit RGB / 255;
+    any other format raises."""
+    if path.endswith((".hdr", ".pic")):
+        return _read_radiance(path)
+    from ..utils.png import SIGNATURE, decode_png
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(SIGNATURE):
+        raise ValueError(f"{path}: not a Radiance .hdr or a PNG file")
+    return decode_png(data)[..., :3].astype(np.float32) / 255.0
+
+
+def _rgbe_to_float(rgbe: np.ndarray) -> np.ndarray:
+    """(..., 4) u8 RGBE -> (..., 3) linear (stb_image semantics)."""
+    e = rgbe[..., 3].astype(np.int32)
+    scale = np.where(e > 0, np.ldexp(1.0, e - 136), 0.0)  # 2^(e-128-8)
+    return (rgbe[..., :3].astype(np.float32)) * scale[..., None]
+
+
+def _read_radiance(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith((b"#?RADIANCE", b"#?RGBE")):
+        raise ValueError(f"{path}: not a Radiance file")
+    pos = 0
+    while True:                      # header lines up to a blank one
+        nl = data.index(b"\n", pos)
+        line = data[pos:nl]
+        pos = nl + 1
+        if line == b"":
+            break
+    nl = data.index(b"\n", pos)
+    res = data[pos:nl].split()
+    pos = nl + 1
+    if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
+        raise ValueError(f"{path}: unsupported orientation {res}")
+    H, W = int(res[1]), int(res[3])
+
+    out = np.empty((H, W, 4), np.uint8)
+    buf = np.frombuffer(data, np.uint8, offset=pos)
+    bp = 0
+    for y in range(H):
+        if W < 8 or W > 0x7FFF or buf[bp] != 2 or buf[bp + 1] != 2:
+            out[y] = buf[bp: bp + W * 4].reshape(W, 4)     # flat scanline
+            bp += W * 4
+            continue
+        if (int(buf[bp + 2]) << 8 | int(buf[bp + 3])) != W:
+            raise ValueError(f"{path}: scanline {y} has the wrong width")
+        bp += 4
+        for c in range(4):           # each component run-length coded
+            x = 0
+            while x < W:
+                count = int(buf[bp])
+                if count > 128:      # a run
+                    out[y, x: x + count - 128, c] = buf[bp + 1]
+                    x += count - 128
+                    bp += 2
+                else:                # literals
+                    out[y, x: x + count, c] = buf[bp + 1: bp + 1 + count]
+                    x += count
+                    bp += 1 + count
+    return _rgbe_to_float(out)
+
+
+def write_hdr(path: str, img: np.ndarray) -> None:
+    """Write (H, W, 3) linear RGB as a flat Radiance .hdr (the JAX
+    package's writer, byte for byte)."""
+    img = np.asarray(img, np.float32)
+    H, W = img.shape[:2]
+    m = img.max(-1)
+    e = np.where(m > 1e-32, np.ceil(np.log2(np.maximum(m, 1e-32))) + 1, 0)
+    scale = np.where(m > 1e-32, np.ldexp(1.0, (-e + 8).astype(np.int32)),
+                     0.0)
+    rgbe = np.zeros((H, W, 4), np.uint8)
+    rgbe[..., :3] = np.clip(img * scale[..., None] + 0.5, 0, 255).astype(
+        np.uint8)
+    rgbe[..., 3] = np.where(m > 1e-32, e + 128, 0).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {H} +X {W}\n".encode())
+        f.write(rgbe.tobytes())
 
 
 def build_env_map(image: np.ndarray, *, device) -> EnvMap:

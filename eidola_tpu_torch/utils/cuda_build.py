@@ -18,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -33,6 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 CUDA_SOURCES = ("bvh_fused", "bvh_mxu", "bvh_walk")
 
 _libs: dict[str, ctypes.CDLL] = {}
+# the viewer renders from two threads; one builds and loads at a time
+# (a build's temporary file is named by the process, not the thread)
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -140,7 +144,10 @@ def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu, building it if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build = cuda_build(name)
-        build_together([build])
-        lib = _libs[name] = ctypes.CDLL(build.out)
+        with _load_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build = cuda_build(name)
+                build_together([build])
+                lib = _libs[name] = ctypes.CDLL(build.out)
     return lib

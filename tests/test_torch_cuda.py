@@ -271,3 +271,55 @@ def test_walk_kernel_matches_brute_force(cuda, leaf_size):
     assert torch.equal(rec.tri >= 0, hit) and torch.equal(occ, hit)
     assert float((rec.tri == tri).float().mean()) >= 0.999
     assert torch.allclose(rec.t[hit], t[hit], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_png_roundtrip_of_a_card_frame(cuda):
+    """utils/png.py on a 1920x1080 frame rendered on the card."""
+    from eidola_tpu_torch.app import headless
+    from eidola_tpu_torch.utils.png import decode_png, encode_png
+
+    img = headless.run(["--scene", "cornell", "--size", "1920", "1080",
+                        "--frames", "1", "--no-denoise", "--no-indirect",
+                        "--device", "cuda", "--quiet"])["image"]
+    u8 = headless.to_u8(img)
+    assert u8.shape == (1080, 1920, 3) and u8.std() > 0
+    back = decode_png(encode_png(u8))
+    assert np.array_equal(back[..., :3], u8) and (back[..., 3] == 255).all()
+
+
+@pytest.mark.cuda
+def test_gltf_scene_on_the_card(cuda, tmp_path):
+    """The glTF loader builds a small instanced GLB's SceneData on cuda,
+    every tensor of it."""
+    from eidola_tpu_torch.models.scenes import write_standin_glb
+    from eidola_tpu_torch.scene.gltf import load_gltf_scene
+
+    path = str(tmp_path / "standin.glb")
+    write_standin_glb(path, target_mtris=0.005)
+    scene, cam = load_gltf_scene(path, device=cuda)
+    assert scene.inst is not None and scene.bvh_alpha is not None
+    leaves = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+
+    walk((scene, cam))
+    assert len(leaves) > 50
+    assert all(t.device.type == "cuda" for t in leaves)
+
+
+@pytest.mark.cuda
+def test_device_monitor_on_the_card(cuda):
+    from eidola_tpu_torch.utils.monitor import DeviceMonitor
+
+    x = torch.ones(1 << 20, device=cuda)
+    mon = DeviceMonitor(cuda, interval_s=0.0)
+    mon.refresh()
+    assert mon.bytes_in_use[-1] >= x.numel() * 4
+    assert mon.bytes_limit > 2**30 and mon.host_rss[-1] > 0
+    assert torch.cuda.get_device_name(cuda) in mon.summary()

@@ -1,7 +1,7 @@
 """The port's scene pipeline against the JAX package's, and the port's
 independence from JAX.
 
-- The port's own `cornell_box()`, `stress_grid(n=2)`,
+- The port's own `cornell_box()`, `boxes_sunsky()`, `stress_grid(n=2)`,
   `bistro_standin(target_mtris=0.02)` (instanced, textured, alpha-MASK
   foliage split off into a flat BVH) and `bistro_hdr(0.02)` (the same
   under an HDR environment; built on the CPU: 8-triangle leaves)
@@ -66,7 +66,7 @@ def _with_table(jbvh):
 
 
 @pytest.mark.parametrize("name,kwargs", [
-    ("cornell_box", {}), ("stress_grid", {"n": 2}),
+    ("cornell_box", {}), ("boxes_sunsky", {}), ("stress_grid", {"n": 2}),
     ("bistro_standin", {"target_mtris": 0.02}),
     ("bistro_hdr", {"target_mtris": 0.02})])
 def test_scene_arrays_equal_jax(name, kwargs):
@@ -115,11 +115,13 @@ print("ok", img.mean())
 
 
 def test_unported_options_raise():
-    """What the port still lacks raises: the `boxes` scene (ROADMAP A).
-    Every RenderConfig option renders since the interactive slice
-    (tests/test_torch_interactive.py)."""
-    with pytest.raises(KeyError):
-        TS.load_scene("boxes", device="cpu")
+    """The port lacks no registry scene now: it has every name of the JAX
+    registry (`boxes` came last, held bitwise above), and only a name
+    neither has raises.  Every RenderConfig option renders since the
+    interactive slice (tests/test_torch_interactive.py)."""
+    assert sorted(TS._REGISTRY) == sorted(JS._REGISTRY)
+    with pytest.raises(KeyError, match="unknown scene"):
+        TS.load_scene("no_such_scene", device="cpu")
 
 
 def test_profile_reports_steady_busy_share(tmp_path):
