@@ -70,13 +70,34 @@ imports nothing of JAX and nothing of the JAX package, and in order:
 11. mxu phase: the same DI frame under EIDOLA_MT=mxu, 2 frames: every
    closest-hit drain goes through mt_mxu, and neither the fused drains
    nor the walk kernels run;
-   each of phases 3-11 sets every launch count to 0 just before it and
+12. multidevice phase, the row-sharded frame (parallel/sharding.py) on
+   bistro_standin at 1920 wide, the default RenderConfig with the HitTest,
+   EIDOLA_TRAV=pallas: (a) one process at 1920x1088 (padded_height(1080,
+   8)) under band_context(8) against the same 2 frames unbanded, with the
+   walk launches of each; (b) the sharded step at world size = the card
+   count over NCCL (one rank in this process on a one-card machine) at
+   1920x1080, 3 frames; (c) two ranks on the one card over gloo, spawned
+   processes, every exchanged slab staged through host memory, 3 frames
+   gathered to rank 0; (b) and (c) print each rank's ms per frame, its
+   collective_summary() of frame 1, its walk launches and carried rows,
+   and each frame's max and mean abs difference from the single-process
+   frame (bound: max < 5e-2, mean < 2e-3, the JAX package's on its
+   sharded step) and on how many pixels the last frame's primary hit
+   differs; a failed rank, a difference past the bound or a walk
+   kernel not launched on a rank fails the phase; then a probe of where
+   (c) differs: each 540-row band's primary rays (8 frame seeds) through
+   the HitTest alone and in the whole image, and for a ray whose hit
+   differs its nearest alpha triangles, the opaque walk of the ray alone
+   and every opaque triangle tested without the BVH; and the opaque
+   walk's hits and packets at the step cap, as 8x16 tiles against the
+   bands' scanline packets;
+   each of phases 3-12 sets every launch count to 0 just before it and
    reads them just after, checks the image (shape, finite, in [0, 1],
    not black) and the accumulation count, that each kernel of its path
    was launched and that the kernels of the other paths were not, and
    keeps the arguments of each kernel's largest call (the walk kernels'
    largest instanced and largest flat call apart);
-12. kernel phase: each kernel on those arguments (the frames' own shapes:
+13. kernel phase: each kernel on those arguments (the frames' own shapes:
    leaf 64, the full bistro tables) against its plain torch version on
    the card, bitwise, with times from CUDA events: the whole wrapper
    call, the kernel alone (its bare launch on arguments already
@@ -87,23 +108,25 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    leaf events per packet, and the seeded call's own rays with t_max
    unbounded again: the seed's effect on the same rays, whose hits must
    not change; the gltf phase's largest instanced, occlusion and alpha-BVH
-   walks; the viewer phase's largest instanced and occlusion walks);
+   walks; the viewer phase's largest instanced and occlusion walks; the
+   multidevice phase's (b) rank-0 largest instanced and occlusion walks);
    plus the drain kernels on a synthetic case
    with an invalid tail and exact-t ties, and on one with drain_case's
    edges (dets at the 1e-12 threshold and at 2^126, dead and all-hit
    warps), which the frames do not hold; for mt_any_fused and mt_mxu
    also what each call's data asks of the kernel (lanes alive, warp
    steps taken, triangles past the vote after the u test);
-13. goldens on the card: cornell, punctual, textured, hdr and alpha (the
+14. goldens on the card: cornell, punctual, textured, hdr and alpha (the
    HitTest on) at 64x64, max_depth=2, traversal_max_steps=1024, 4
    frames, through the walk kernel, each within 0.02 mean abs of
    tests/golden/*_64_d2_f4.npy;
-14. holds small DI frames on the card against the same frames through
+15. holds small DI frames on the card against the same frames through
    the plain versions on the CPU (cornell 32x32, stress 64x64);
-15. prints one JSON line with an entry per kernel and path (the
+16. prints one JSON line with an entry per kernel and path (the
    bistro_flat DI and GI frames, the standin frame, the interactive
-   frame, the GLB frame, the viewer, the standin DI frames with the
-   fused and the mxu drains): that phase's launches and
+   frame, the GLB frame, the viewer, the multidevice (b) rank, the
+   standin DI frames with the fused and the mxu drains): that phase's
+   launches and
    the kernel's error, times (`ms` the wrapper call, `kernel_ms` the
    kernel alone) and bound on the phase's largest call;
    then, last, {"ok": true, "device": {...}}.
@@ -163,6 +186,11 @@ VIEWER_S = 600.0                 # the viewer phase's time limit
 # their sums, plus the epilogue: what the drain kernels compute.
 MT_DOT_OPS = 19 + 15
 MT_EPI_OPS = 10
+# the multidevice phase: frames of its (a) runs and of (b), (c); each
+# multi-process run's time limit; the JAX package's bounds on its sharded
+# step against the single-device one (tests/test_parallel.py:45-46)
+MD_FRAMES_A, MD_FRAMES, MD_RANKS_S, MD_PROBE_SEEDS = 2, 3, 300.0, 8
+MD_MAX, MD_MEAN = 5e-2, 2e-3
 
 
 def fail(msg: str) -> None:
@@ -1136,6 +1164,311 @@ def synthetic_phase(dev) -> None:
         check_mxu((row, n, *planes), label + " (dead rays)")
 
 
+def single_frames(scene, cam, cfg, frames: int):
+    """The single-process frames of `cfg` under pallas: (numpy images, ms
+    per frame on a synchronised host clock, the last carried state)."""
+    import torch
+
+    from eidola_tpu_torch.ops import packets
+    from eidola_tpu_torch.render.config import default_params, default_tonemap
+    from eidola_tpu_torch.render.frame import init_frame_state, make_step
+
+    dev = cam.pos.device
+    params, tm = default_params(device=dev), default_tonemap(device=dev)
+    state, step, out, ms = init_frame_state(cfg, cam), make_step(cfg), [], []
+    packets.TRAV = "pallas"
+    try:
+        for _ in range(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, o = step(scene, cam, params, tm, state)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(o["image"].cpu().numpy())
+    finally:
+        packets.TRAV = "xla"
+    return out, ms, state
+
+
+def _held(label, got, want) -> str:
+    """Max and mean abs difference of each frame against the
+    single-process one; fails past the JAX package's bounds on its
+    sharded step (tests/test_parallel.py:45-46)."""
+    import numpy as np
+
+    parts = []
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not np.isfinite(a).all():
+            fail(f"{label}: frame {k} shape {a.shape} != {b.shape} or "
+                 f"not finite")
+        d = np.abs(a - b)
+        mx, mean = float(d.max()), float(d.mean())
+        parts.append(f"frame {k} max {mx:.3e} mean {mean:.3e}")
+        if not (mx < MD_MAX and mean < MD_MEAN):
+            fail(f"{label}: frame {k} max abs diff {mx} / mean {mean} past "
+                 f"{MD_MAX} / {MD_MEAN}")
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} frames, want {len(want)}")
+    return "; ".join(parts)
+
+
+def _primary_ties(label, got, tri, depth) -> None:
+    """Where the last frame's primary triangles differ from the
+    reference's, whether their depths do too (an exact-t tie is won by
+    whichever leaf a packet visited first, and packets depend on the
+    band)."""
+    other = got[0] != tri
+    dz = abs(got[1] - depth)[other]
+    print(f"{label}: the last frame's primary triangle differs on "
+          f"{int(other.sum())} of {other.size} pixels, the depth there by "
+          f"at most {float(dz.max()) if dz.size else 0.0:.3e}", flush=True)
+
+
+def _rank_lines(label, ranks) -> None:
+    for r in ranks:
+        walks = {k: r["launches"][k] for k in WALKS}
+        print(f"{label}: rank {r['rank']}: ms/frame " + ", ".join(
+            f"{m:.1f}" for m in r["ms"]) + f"; collective_summary of frame "
+            f"1 {json.dumps(r['audit'])}; walk launches {json.dumps(walks)}"
+            f"; rows {json.dumps(r['rows'])}", flush=True)
+        if min(walks.values()) <= 0:
+            fail(f"{label}: a walk kernel was not launched on rank "
+                 f"{r['rank']} ({walks})")
+        if max(r["launches"][k] for k in DRAINS + MXU) != 0:
+            fail(f"{label}: a drain ran on rank {r['rank']} under pallas")
+
+
+def _brute_instanced(bvh, o, d) -> str:
+    """The nearest hit of one ray over every triangle of an instanced BVH
+    (each global leaf's pool row tested in its instance's object space,
+    ray_triangle, no BVH), and the walk-table nodes on the path to that
+    leaf whose slab test (walk_ref's, without the t_best bound) rejects
+    the ray: each with its entry and exit t and how far outside the box
+    the hit point lies."""
+    import torch
+
+    from eidola_tpu_torch.ops.bvh_walk import _inv
+    from eidola_tpu_torch.ops.intersect import ray_triangle
+
+    n = bvh.leaf_size
+    e = bvh.leaf_blocks.reshape(-1, n, 12)[bvh.leaf_mesh_row]
+    xf = bvh.inst_inv[bvh.leaf_inst].reshape(-1, 3, 4)
+    ot = (xf[:, :, :3] @ o + xf[:, :, 3])[:, None].expand(-1, n, 3)
+    dt = (xf[:, :, :3] @ d)[:, None].expand(-1, n, 3)
+    _, t, _, _ = ray_triangle(ot, dt, e[..., 0:3], e[..., 3:6], e[..., 6:9],
+                              1e-4, 1e8)
+    best = float(t.min())
+    leaf = int(torch.argmin(t.min(dim=1).values))
+    links = bvh.walk[:, 6:8].contiguous().view(torch.int32).long()
+    node = int(torch.nonzero(links[:, 1] == leaf)[0, 0])
+    miss = torch.where(links[:, 0] < 0, links.shape[0], links[:, 0])
+    idx = torch.arange(links.shape[0], device=links.device)
+    path = torch.nonzero((idx <= node) & (miss > node))[:, 0]
+    box = bvh.walk[path, 0:6]
+    lo = (box[:, 0:3] - o) * _inv(d)
+    hi = (box[:, 3:6] - o) * _inv(d)
+    tn = torch.minimum(lo, hi).max(dim=1).values
+    tf = torch.maximum(lo, hi).min(dim=1).values
+    bad = ~((tn <= tf) & (tf >= 1e-4))
+    p = o + best * d
+    out = torch.maximum(box[:, 0:3] - p, p - box[:, 3:6]).max(dim=1).values
+    fails = [f"node {int(path[k])} (tn {float(tn[k]):.7g}, tf "
+             f"{float(tf[k]):.7g}, hit point {float(out[k]):.3e} outside)"
+             for k in torch.nonzero(bad)[:, 0].tolist()]
+    return (f"{best:.4f} in global leaf {leaf}, {path.numel()} nodes on its "
+            f"path, rejected by " + ("; ".join(fails) or "none"))
+
+
+def band_packets_probe(scene, cam, cfg) -> None:
+    """Where (c)'s primary hits can differ: a 540-row band is not whole
+    8-row tiles, so a rank traces its primary rays as scanline packets
+    (the single frame: 8x16 tiles), and its alpha queue march holds only
+    its rays.  For each band's primary rays of a few frame seeds (salt k
+    is frame k's), the HitTest closest hit (trace_closest, coherent, the
+    card's queue march) of the band alone against the same rays in the
+    whole image: the hits that differ, and for each such ray the two
+    nearest alpha-BVH triangles it crosses, the opaque walk of the ray
+    alone and _brute_instanced.  Then the opaque instanced walk alone,
+    at the frame's step cap and at an unbounded one: the rays whose hit
+    differs and the packets that reached the cap."""
+    import torch
+
+    from eidola_tpu_torch.ops import bvh_walk as W
+    from eidola_tpu_torch.ops import packets
+    from eidola_tpu_torch.ops import rng as erng
+    from eidola_tpu_torch.ops.intersect import ray_triangle
+    from eidola_tpu_torch.render.tracer import trace_closest
+    from eidola_tpu_torch.scene.camera import spawn_rays
+
+    h, w, n = cfg.height, cfg.width, cfg.height // 2
+    full = lambda rows, v: torch.full((rows, w), v, device="cuda")
+    tris = scene.bvh_alpha.leaf_blocks.reshape(-1, 12)
+    packets.TRAV = "pallas"
+    try:
+        differ, ties = 0, []   # (seed, row, column, t whole, t band)
+        for salt in range(MD_PROBE_SEEDS):
+            rng, o, d = spawn_rays(cam, h, w, erng.seed_pixels(
+                h, w, salt, device="cuda"))
+            whole = trace_closest(cfg, scene, o, d, full(h, 1e-4),
+                                  full(h, 1e8), rng, coherent=True)[1]
+            for b in (slice(0, n), slice(n, h)):
+                band = trace_closest(cfg, scene, o[b], d[b], full(n, 1e-4),
+                                     full(n, 1e8), rng[b], coherent=True)[1]
+                other = torch.nonzero(whole.tri[b] != band.tri)
+                differ += other.shape[0]
+                ties += [(salt, b.start + y, x, float(whole.t[b][y, x]),
+                          float(band.t[y, x])) for y, x in other.tolist()]
+        lines = []
+        for salt, y, x, t_whole, t_band in ties[:4]:
+            _, o, d = spawn_rays(cam, h, w, erng.seed_pixels(
+                h, w, salt, device="cuda"))
+            ray = lambda a: a[y, x].expand(tris.shape[0], 3)
+            _, t, _, _ = ray_triangle(ray(o), ray(d), tris[:, 0:3],
+                                      tris[:, 3:6], tris[:, 6:9], 1e-4, 1e8)
+            t2 = torch.topk(t, 2, largest=False).values.tolist()
+            one = lambda v: torch.full((1,), v, device="cuda")
+            alone = packets.closest_hit(scene.bvh, o[y, x][None],
+                                        d[y, x][None], one(1e-4), one(1e8))
+            brute = _brute_instanced(scene.bvh, o[y, x], d[y, x])
+            lines.append(f"seed {salt} ray ({y}, {x}): depth {t_whole:.4f}"
+                         f" / {t_band:.4f}, nearest alpha t {t2[0]:.7g}, "
+                         f"{t2[1]:.7g}; the opaque walk of the ray alone "
+                         f"{float(alone.t[0]):.4f}, every opaque triangle "
+                         f"tested: {brute}")
+        print(f"multidevice: band probe, HitTest primary of each {n}-row "
+              f"band alone vs in the whole image, {MD_PROBE_SEEDS} seeds: "
+              f"hits differ on {differ} of {MD_PROBE_SEEDS * h * w} rays; "
+              + ("; ".join(lines) or "none"), flush=True)
+        for cap in (cfg.traversal_max_steps, 1 << 24):
+            differ, at_cap = 0, [0, 0]
+            for salt in range(MD_PROBE_SEEDS):
+                _, o, d = spawn_rays(cam, h, w, erng.seed_pixels(
+                    h, w, salt, device="cuda"))
+                for k, b in enumerate((slice(0, h), slice(0, n),
+                                       slice(n, h))):
+                    with walk_capture() as calls:
+                        rec = packets.closest_hit_img(
+                            scene.bvh, o[b], d[b], full(b.stop - b.start,
+                                                        1e-4),
+                            full(b.stop - b.start, 1e8), max_steps=cap)
+                    (walk, leaf, rays, steps), kw = calls.args[
+                        "walk_closest+inst"]
+                    stats = torch.zeros((rays.shape[1], 2),
+                                        dtype=torch.int32, device="cuda")
+                    W.walk_closest(walk, leaf, rays, steps, stats=stats,
+                                   inst=kw["inst"])
+                    at_cap[min(k, 1)] += int((stats[:, 0] >= cap).sum())
+                    if k == 0:
+                        whole = rec
+                    else:
+                        differ += int((whole.tri[b] != rec.tri).sum())
+            print(f"multidevice: band probe, opaque instanced primary walk, "
+                  f"step cap {cap}, {MD_PROBE_SEEDS} seeds: each band's "
+                  f"scanline packets against the whole image's 8x16 tiles:"
+                  f" hits differ on {differ} rays; packets at the cap: "
+                  f"{at_cap[0]} of the tiles', {at_cap[1]} of the bands'",
+                  flush=True)
+    finally:
+        packets.TRAV = "xla"
+
+
+def multidevice_phase():
+    """The row-sharded frame (parallel/sharding.py) on bistro_standin at
+    the headline frame's width, the default RenderConfig with the HitTest,
+    pallas: (a) the single-process banded layout at 1920x1088 under
+    band_context(8) against the same frames unbanded; (b) the sharded step
+    at world size = the card count over NCCL at 1920x1080 (one rank per
+    card; in this process when there is one card), its walks captured;
+    (c) two ranks on one card over gloo (spawned processes), the only run
+    in which rows cross between processes on the card.  Returns (b)'s walk
+    capture and rank 0's launches."""
+    import numpy as np
+    import torch
+
+    from eidola_tpu_torch.app.headless import alpha_geometry
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.ops.halo import band_context
+    from eidola_tpu_torch.parallel import exchange as X
+    from eidola_tpu_torch.parallel.sharding import (free_port, padded_height,
+                                                    render_rank, run_ranks)
+    from eidola_tpu_torch.render.config import RenderConfig
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    scene, cam = load_scene("bistro_standin", device=dev)
+    print(f"multidevice: bistro_standin loaded in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    alpha = alpha_geometry(scene)
+    # (a) one process, 8 row bands (1088 = padded_height(1080, 8))
+    cfg_a = RenderConfig(width=1920, height=padded_height(1080, 8),
+                         alpha_geometry=alpha)
+    runs = {}
+    for name, bands in (("unbanded", 1), ("banded", 8)):
+        _reset_launches()
+        with band_context(bands):
+            runs[name] = single_frames(scene, cam, cfg_a, MD_FRAMES_A)
+        walks = {k: _launches()[k] for k in WALKS}
+        print(f"multidevice (a) {name} 1920x1088: ms/frame " + ", ".join(
+            f"{m:.1f}" for m in runs[name][1]) + f"; walk launches "
+            f"{json.dumps(walks)}", flush=True)
+        if min(walks.values()) <= 0:
+            fail(f"multidevice (a) {name}: walk kernels not launched")
+    print("multidevice (a) banded(8) against unbanded: "
+          + _held("multidevice (a)", runs["banded"][0], runs["unbanded"][0]),
+          flush=True)
+    ga, gb = runs["banded"][2].gbuf, runs["unbanded"][2].gbuf
+    _primary_ties("multidevice (a)", (ga.tri.cpu().numpy(),
+                                      ga.depth.cpu().numpy()),
+                  gb.tri.cpu().numpy(), gb.depth.cpu().numpy())
+    del runs, ga, gb
+    # the single-process frames (b) and (c) are held against
+    cfg = RenderConfig(width=1920, height=1080, alpha_geometry=alpha)
+    ref, ref_ms, ref_state = single_frames(scene, cam, cfg, MD_FRAMES)
+    ref_gbuf = (ref_state.gbuf.tri.cpu().numpy(),
+                ref_state.gbuf.depth.cpu().numpy())
+    del ref_state
+    print("multidevice: the single-process 1920x1080 frames, ms/frame "
+          + ", ".join(f"{m:.1f}" for m in ref_ms), flush=True)
+    job = dict(scene="bistro_standin", cfg=cfg, frames=MD_FRAMES,
+               device="cuda", trav="pallas", gbuf=True)
+    # (b) world size = card count over NCCL
+    world = torch.cuda.device_count()
+    walks = walk_capture()
+    if world == 1:
+        group = X.init_group(0, 1, "nccl", f"tcp://localhost:{free_port()}")
+        try:
+            with walks:
+                ranks = [render_rank(group, job, scene, cam)]
+        finally:
+            X.close_group()
+    else:
+        ranks = run_ranks(world, "nccl", render_rank, (job,), MD_RANKS_S)
+    _rank_lines(f"multidevice (b) nccl x{world}", ranks)
+    print(f"multidevice (b) nccl x{world} 1920x1080 against the "
+          f"single-process frame: " + _held("multidevice (b)",
+                                            ranks[0]["images"], ref),
+          flush=True)
+    _primary_ties("multidevice (b)", ranks[0]["gbuf"], *ref_gbuf)
+    b_launches = ranks[0]["launches"]
+    del ranks
+    torch.cuda.empty_cache()
+    # (c) two ranks on the one card over gloo: slabs staged through the host
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, "gloo", render_rank, (job,), MD_RANKS_S)
+    print(f"multidevice (c) gloo x2 on one card (every exchanged slab "
+          f"staged through host memory): {time.perf_counter() - t0:.1f}s "
+          f"with the processes' start and scene loads", flush=True)
+    _rank_lines("multidevice (c) gloo x2, one card", ranks)
+    print("multidevice (c) gloo x2 1920x1080 against the single-process "
+          "frame: " + _held("multidevice (c)", ranks[0]["images"], ref),
+          flush=True)
+    _primary_ties("multidevice (c)", ranks[0]["gbuf"], *ref_gbuf)
+    band_packets_probe(scene, cam, cfg)
+    if not np.isfinite(ranks[0]["images"][-1]).all():
+        fail("multidevice (c): image not finite")
+    return (walks if world == 1 else None), b_launches
+
+
 def golden_phase() -> None:
     """The golden config through the walk kernel on the card."""
     import numpy as np
@@ -1308,6 +1641,8 @@ def main() -> None:
     check_standin(mx)
     del mx
     torch.cuda.empty_cache()
+    md_walks, md_launches = multidevice_phase()
+    torch.cuda.empty_cache()
     st_times = {
         "walk_closest+inst": check_walk(
             "walk_closest", st_walks.args["walk_closest+inst"],
@@ -1349,6 +1684,14 @@ def main() -> None:
                      "largest viewer instanced occlusion traversal"))}
     vw_sizes = vw_walks.sizes
     del vw_walks
+    md_times = {} if md_walks is None else {
+        k: check_walk(k.split("+")[0], md_walks.args[k], label)
+        for k, label in (
+            ("walk_closest+inst",
+             "largest multidevice (b) rank-0 instanced traversal"),
+            ("walk_any+inst",
+             "largest multidevice (b) rank-0 instanced occlusion traversal"))}
+    del md_walks
     torch.cuda.empty_cache()
     sd_times = {name: check_drain(
         name, sd_cap.args[name][0],
@@ -1383,6 +1726,10 @@ def main() -> None:
             + [(k.split("+")[0], "viewer: GLB standin + .hdr 1920x1080 "
                 "pallas, instanced BVH", len(vw_sizes[k]), vw_times[k])
                for k in vw_times]
+            + [(k.split("+")[0], "multidevice (b): standin 1920x1080 "
+                "pallas, the sharded step at world size 1 over NCCL, rank 0,"
+                " instanced BVH", md_launches[k.split("+")[0]], md_times[k])
+               for k in md_times]
             + [(k, "standin DI 1920x1080 xla", sd_launches[k], sd_times[k])
                for k in DRAINS]
             + [(k, "standin DI 1920x1080 mxu", mx_launches[k], times[k])

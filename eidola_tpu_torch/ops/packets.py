@@ -12,6 +12,17 @@ consecutive rays should be spatially coherent.
    origin Morton cell, direction) before traversal and restored after.
    Dead rays (t_max < t_min) cluster into packets that retire at once.
 
+Under a band context (ops/halo.py) the sort is band-local: rays permute
+only within their own row band, as the JAX package's banded sort
+(packets.py:236-280) keeps the wavefront shard-local.  The banded order
+is traversed in one call: each band is a whole number of 128-ray
+packets, so no packet mixes bands, which is what the JAX package's vmap
+over bands gives.  Image tiles need nothing for bands: in tile-major
+order each band of h/B rows (h divisible by 8 B) is already one
+contiguous run of whole packets.  The rank-local frame
+(parallel/sharding.py) holds only its rank's rays, so there the sort
+covers those, with no communication.
+
 `TRAV` selects the traversal every door uses, from EIDOLA_TRAV as in the
 JAX package: "xla" (default) is the torch walk of ops/bvh.py with its
 drain kernels, "pallas" the one-kernel walk of ops/bvh_walk.py, which
@@ -28,7 +39,8 @@ import torch
 from . import bvh as _bvh
 from . import bvh_instanced as _inst
 from . import bvh_walk as _walk
-from .bvh import BVH, HitRecord
+from .bvh import BVH, PACKET, HitRecord
+from .halo import get_bands
 
 TILE_H = 8
 TILE_W = 16
@@ -142,18 +154,30 @@ def ray_sort_keys(bvh: BVH, o, d, dead):
     return dead_u | (morton(7) << 3) | octant
 
 
+def _sort_bands(R: int) -> int:
+    """Band count of a flat field of R rays: the band context's when it
+    splits R into whole packets, else 1 (one sort over all rays)."""
+    B = get_bands()
+    if B > 1 and R % B == 0 and (R // B) % PACKET == 0:
+        return B
+    return 1
+
+
 def make_ray_order(bvh: BVH, o, d, dead):
     """(perm, inv) ordering rays by their sort key (a stable sort; the
     inverse permutation comes from a scatter).  The order can be reused by
     later traversals whose rays share (approximately) the same origins.
-    Any permutation gives the same hits: the sort only serves speed."""
+    Any permutation gives the same hits: the sort only serves speed.
+    Under a band context perm and inv are (B, R/B) band-local indices."""
     R = int(o.numel() // 3)
     keys = ray_sort_keys(bvh, o.reshape(R, 3), d.reshape(R, 3),
                          dead.reshape(R))
-    perm = torch.sort(keys, stable=True).indices
+    B = _sort_bands(R)
+    perm = torch.sort(keys.reshape(B, R // B), dim=1, stable=True).indices
     inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(R, device=perm.device)
-    return perm, inv
+    inv.scatter_(1, perm, torch.arange(R // B, device=perm.device)
+                 .expand(B, R // B))
+    return (perm, inv) if B > 1 else (perm[0], inv[0])
 
 
 def _sorted_traverse(fn, bvh: BVH, o, d, t_min, t_max, max_steps: int,
@@ -170,6 +194,10 @@ def _sorted_traverse(fn, bvh: BVH, o, d, t_min, t_max, max_steps: int,
     if order is None:
         order = make_ray_order(bvh, o, d, dead=t_max < t_min)
     perm, inv = order
+    if perm.dim() == 2:                 # band-local: to global indices
+        base = (torch.arange(perm.shape[0], device=perm.device)
+                * perm.shape[1])[:, None]
+        perm, inv = (perm + base).reshape(-1), (inv + base).reshape(-1)
     out = fn(bvh, o[perm], d[perm], t_min[perm], t_max[perm],
              max_steps=max_steps)
     if isinstance(out, HitRecord):

@@ -102,9 +102,12 @@ def rand(state):
     return new_state, _to_float01(word)
 
 
-def seed_pixels(h: int, w: int, frame_word, *, device=None):
-    """Per-pixel seeds for one frame: tea(pixelIndex, frame_word)."""
+def seed_pixels(h: int, w: int, frame_word, *, device=None, row0: int = 0):
+    """Per-pixel seeds for one frame: tea(pixelIndex, frame_word), for the
+    h rows of a w-wide image that start at global row `row0` (a rank's
+    band of the image seeds with the global pixel index)."""
     if isinstance(frame_word, torch.Tensor):
         device = frame_word.device
-    idx = torch.arange(h * w, dtype=torch.int64, device=device).reshape(h, w)
+    idx = torch.arange(row0 * w, (row0 + h) * w, dtype=torch.int64,
+                       device=device).reshape(h, w)
     return tea(idx, u32(frame_word, device=device))

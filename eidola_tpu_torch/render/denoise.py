@@ -12,6 +12,13 @@ Taps are static shifted slices of an edge-padded tensor, as in the JAX
 package.  `bilateral_denoise` is the single-pass alternative (ref
 denoise_direct.comp:73-137, compile-time DENOISER_DIRECT_BILATERAL); no
 RenderConfig selects it.
+
+Under a shard context (ops/halo.py) each level reads the rows that its
+taps reach beyond the rank's band (2 * 2^level) from the ranks above and
+below: one row exchange of the image per level.  The edge stops read the
+same view planes at every level, so `atrous_denoise` exchanges them once,
+at its largest pad.  At the image border the exchange gives edge rows,
+the padding of the single-process filter.
 """
 from __future__ import annotations
 
@@ -19,7 +26,9 @@ import math
 
 import torch
 
+from ..ops.halo import get_shard
 from ..ops.math import luminance
+from ..parallel.exchange import exchange_rows
 from .gbuffer import GBufferView
 
 _K5 = [1.0 / 16.0, 1.0 / 4.0, 3.0 / 8.0, 1.0 / 4.0, 1.0 / 16.0]
@@ -33,6 +42,18 @@ def _pad(a, pad: int):
     return a[rows][:, cols]
 
 
+def _pad_cols(a, pad: int):
+    """Edge padding of the second axis only (the rows came padded)."""
+    w = a.shape[1]
+    return a[:, torch.clamp(torch.arange(-pad, w + pad, device=a.device), 0,
+                            w - 1)]
+
+
+def _view_planes(view: GBufferView):
+    """The planes of the view the edge stops read."""
+    return (view.pos, view.nrm, view.mat_hash, view.valid)
+
+
 def _shift(a, dy: int, dx: int, pad: int):
     """Static shifted view of an edge-padded array (H+2p, W+2p, ...)."""
     h = a.shape[0] - 2 * pad
@@ -41,17 +62,28 @@ def _shift(a, dy: int, dx: int, pad: int):
 
 
 def _edge_stopped(img, view: GBufferView, taps, sigma_lum, sigma_norm,
-                  sigma_depth):
+                  sigma_depth, view_ext=None):
     """The weighted mean over `taps` (dy, dx, spatial weight k) of the
     edge-padded image, each tap weighted by k and the edge stops (luma,
     normal, position, material gate); pixels without a surface keep
-    their value."""
+    their value.  Under a shard context the padded rows come from a row
+    exchange; `view_ext` = (the view planes exchanged with e >= pad rows,
+    e) saves exchanging them here."""
     pad = max(max(abs(dy), abs(dx)) for dy, dx, _ in taps)
-    img_p = _pad(img, pad)
-    pos_p = _pad(view.pos, pad)
-    nrm_p = _pad(view.nrm, pad)
-    hash_p = _pad(view.mat_hash, pad)
-    valid_p = _pad(view.valid, pad)
+    sh = get_shard()
+    if sh is None:
+        img_p = _pad(img, pad)
+        pos_p, nrm_p, hash_p, valid_p = [_pad(a, pad)
+                                         for a in _view_planes(view)]
+    else:
+        img_p = _pad_cols(exchange_rows(sh, img, pad, "denoise.img"), pad)
+        if view_ext is None:
+            view_ext = (exchange_rows(sh, _view_planes(view), pad,
+                                      "denoise.view"), pad)
+        planes, e = view_ext
+        h = img.shape[0]
+        pos_p, nrm_p, hash_p, valid_p = [
+            _pad_cols(a[e - pad:e + h + pad], pad) for a in planes]
 
     lum_c = luminance(img)
     inv_sl = 1.0 / torch.clamp(sigma_lum, min=1e-4)
@@ -83,23 +115,29 @@ def _edge_stopped(img, view: GBufferView, taps, sigma_lum, sigma_norm,
 
 
 def atrous_level(img, view: GBufferView, level: int, sigma_lum, sigma_norm,
-                 sigma_depth):
+                 sigma_depth, view_ext=None):
     """One a-trous iteration at stride 2^level (ref
     denoise_direct.comp:19-71)."""
     stride = 1 << level
     taps = [((iy - 2) * stride, (ix - 2) * stride, ky * kx)
             for iy, ky in enumerate(_K5) for ix, kx in enumerate(_K5)]
     return _edge_stopped(img, view, taps, sigma_lum, sigma_norm,
-                         sigma_depth * stride)
+                         sigma_depth * stride, view_ext=view_ext)
 
 
 def atrous_denoise(img, view: GBufferView, levels: int, sigma_lum, sigma_norm,
                    sigma_depth):
     """Levels 0..levels-1 (ref renderer.cpp:178-202: 4 direct / 5
     indirect iterations)."""
+    sh = get_shard()
+    view_ext = None
+    if sh is not None and levels > 0:
+        e = 2 << (levels - 1)               # the last level's pad
+        view_ext = (exchange_rows(sh, _view_planes(view), e,
+                                  "denoise.view"), e)
     for level in range(levels):
         img = atrous_level(img, view, level, sigma_lum, sigma_norm,
-                           sigma_depth)
+                           sigma_depth, view_ext=view_ext)
     return img
 
 

@@ -10,6 +10,13 @@ the rest reuse the reprojected visibility); temporal merge with the
 reprojected history reservoir behind the normal/depth/matHash gates;
 M-clamp; spatial disk-neighbour rounds; albedo-demodulated shading;
 firefly clamp and HDR->LDR.
+
+Under a shard context (ops/halo.py, parallel/sharding.py) the stage
+renders the rank's rows: rays, seeds, tiles and motion vectors in global
+pixel coordinates, and the gathers that read other rows (temporal view,
+reservoir and visibility within +-temporal_halo rows, spatial taps within
++-spatial_radius) read operands extended by a row exchange of the packed
+state (G-buffer words, reservoirs, visibility), decoded after it.
 """
 from __future__ import annotations
 
@@ -20,11 +27,12 @@ import torch
 
 from ..ops import reservoir as resv
 from ..ops import rng as erng
-from ..ops.halo import halo_gather, halo_gather_tree
+from ..ops.halo import get_shard, halo_gather, halo_gather_tree, image_rows
 from ..ops.intersect import ray_triangle
 from ..ops.math import (clamp_radiance, dot3, hdr_to_ldr, luminance,
                         make_frame, offset_ray, to_local)
 from ..ops.packets import TILE_H, TILE_W
+from ..parallel.exchange import exchange_rows
 from ..scene.camera import Camera, project_to_pixel, spawn_rays
 from ..scene.data import ALPHA_OPAQUE, SceneData, shade_row
 from .bsdf import BsdfParams, eval_bsdf
@@ -121,11 +129,15 @@ def _seed_tmax(cfg: RenderConfig, scene: SceneData, o, d, prev_tri):
     return torch.where(ok, p_t * (1.0 + 1e-4) + 1e-6, _TMAX)
 
 
-def _tile_active(h: int, w: int, frame_idx, cadence: int, device):
+def _tile_active(h: int, w: int, frame_idx, cadence: int, device,
+                 row0: int = 0):
     """Visibility reuse's mask: the 8x16 tiles that re-validate this frame,
-    tea(tile id, frame index) % cadence == 0, in uint32 arithmetic."""
+    tea(tile id, frame index) % cadence == 0, in uint32 arithmetic; for
+    the h rows from global row `row0` (tile ids count over the whole
+    image)."""
     fi = erng.u32(0 if frame_idx is None else frame_idx, device=device)
-    ty = torch.arange(h, dtype=torch.int64, device=device)[:, None] // TILE_H
+    ty = torch.arange(row0, row0 + h, dtype=torch.int64,
+                      device=device)[:, None] // TILE_H
     tx = torch.arange(w, dtype=torch.int64, device=device)[None, :] // TILE_W
     tile_id = (ty * -(-w // TILE_W) + tx) & erng.M32
     return erng.tea(tile_id, fi) % cadence == 0
@@ -142,26 +154,56 @@ def _reuse_visibility(cfg: RenderConfig, need, gates, prev_vis, mot_y, mot_x,
     h, w = need.shape
     vis_prev, _ = halo_gather(prev_vis, mot_y, mot_x, cfg.temporal_halo)
     vis_known = gates & (vis_prev >= 0.0)
-    active = _tile_active(h, w, frame_idx, cfg.shadow_cadence, need.device)
+    active = _tile_active(h, w, frame_idx, cfg.shadow_cadence, need.device,
+                          row0=image_rows(cfg.height)[0])
     return need & (active | ~vis_known), vis_prev
+
+
+def history_view(cfg: RenderConfig, prev_gbuf: GBuffer, prev_cam: Camera):
+    """The previous frame's G-buffer decoded for the temporal gathers: the
+    whole image, or under a shard context the rank's rows with
+    cfg.temporal_halo rows above and below (the packed words cross, then
+    decode with the previous camera's rays of those global rows)."""
+    h, w = cfg.height, cfg.width
+    sh = get_shard()
+    if sh is None:
+        return decode_gbuffer(prev_gbuf, prev_cam.pos,
+                              center_rays(prev_cam, h, w))
+    halo = cfg.temporal_halo
+    ext = exchange_rows(sh, prev_gbuf, halo, "history.gbuf")
+    return decode_gbuffer(ext, prev_cam.pos,
+                          center_rays(prev_cam, h, w,
+                                      rows=_halo_rows(sh, h, halo,
+                                                      ext.depth.device)))
+
+
+def _halo_rows(sh, h: int, halo: int, device):
+    """Global rows of a rank's band of an h-row image extended by `halo`
+    rows, edge-clamped (what exchange_rows returns)."""
+    row0, n = sh.rows(h)
+    return torch.clamp(torch.arange(row0 - halo, row0 + n + halo,
+                                    device=device), 0, h - 1)
 
 
 def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
                  cam: Camera, prev_gbuf: GBuffer, prev_resv: dict,
                  prev_cam: Camera, rng_state, prev_vis=None, frame_idx=None,
-                 timer=None):
+                 timer=None, prev_view=None):
     """K1.  Returns (rng_state, DirectOut).  `prev_vis` and `frame_idx`
-    (the FrameState's di_vis and frame_idx) drive visibility reuse.
-    `timer` (utils.profiler StageTimer) marks primary_trace, shading_ris,
-    shadow_trace, di_temporal_shade and, in the spatial modes,
-    di_spatial."""
-    h, w = cfg.height, cfg.width
+    (the FrameState's di_vis and frame_idx) drive visibility reuse;
+    `prev_view` is history_view's decode of prev_gbuf when the caller has
+    it.  `timer` (utils.profiler StageTimer) marks primary_trace,
+    shading_ris, shadow_trace, di_temporal_shade and, in the spatial
+    modes, di_spatial."""
+    H, w = cfg.height, cfg.width
+    row0, h = image_rows(H)
+    sh = get_shard()
     dev = rng_state.device
     full = lambda v: torch.full((h, w), v, dtype=torch.float32, device=dev)
     mark = timer.mark if timer is not None else (lambda name: None)
 
     # --- primary hit ---------------------------------------------------
-    rng_state, o, d = spawn_rays(cam, h, w, rng_state)
+    rng_state, o, d = spawn_rays(cam, H, w, rng_state, row0=row0)
     t_max0 = full(_TMAX)
     if cfg.primary_seed and scene.bvh.slot_of_tri is not None:
         t_max0 = _seed_tmax(cfg, scene, o, d, prev_gbuf.tri)
@@ -169,7 +211,7 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
                                    rng_state, coherent=True)
     mark("primary_trace")
     t_hit = rec.t
-    cone = (2.0 * cam.proj_inv[1, 1] / h) if cfg.texture_mips else None
+    cone = (2.0 * cam.proj_inv[1, 1] / H) if cfg.texture_mips else None
     state = get_state(scene, o, d, rec.tri, t_hit, rec.u, rec.v,
                       cone_angle=cone)
     wo = -d
@@ -180,11 +222,13 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
 
     # --- G-buffer + motion vector ---------------------------------------
     gbuf = pack_gbuffer(state, t_hit, rec.tri)
-    view = decode_gbuffer(gbuf, cam.pos, center_rays(cam, h, w))
-    py, px, inside = project_to_pixel(cam.last_proj_view, state.pos, h, w)
+    view = decode_gbuffer(gbuf, cam.pos, center_rays(
+        cam, H, w, rows=None if sh is None else torch.arange(
+            row0, row0 + h, device=dev)))
+    py, px, inside = project_to_pixel(cam.last_proj_view, state.pos, H, w)
     mvalid = inside & state.valid
     motion = torch.stack([
-        torch.where(mvalid, torch.clamp(py.to(torch.int64), 0, h - 1), -1),
+        torch.where(mvalid, torch.clamp(py.to(torch.int64), 0, H - 1), -1),
         torch.where(mvalid, torch.clamp(px.to(torch.int64), 0, w - 1), -1),
     ], dim=-1)
 
@@ -207,9 +251,15 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
     use_vis_reuse = cfg.shadow_cadence > 1 and prev_vis is not None
     gates = mot_y = mot_x = None
     if temporal_on or use_vis_reuse:
-        prev_view = decode_gbuffer(prev_gbuf, prev_cam.pos,
-                                   center_rays(prev_cam, h, w))
-        mot_y = torch.clamp(motion[..., 0], 0, h - 1)
+        if prev_view is None:
+            prev_view = history_view(cfg, prev_gbuf, prev_cam)
+        if sh is not None:              # the rows the gathers may read
+            hist = exchange_rows(sh, {
+                "resv": prev_resv if temporal_on else None,
+                "vis": prev_vis if use_vis_reuse else None},
+                cfg.temporal_halo, "direct.history")
+            prev_resv, prev_vis = hist["resv"], hist["vis"]
+        mot_y = torch.clamp(motion[..., 0], 0, H - 1)
         mot_x = torch.clamp(motion[..., 1], 0, w - 1)
         hist_view, in_halo = halo_gather_tree(prev_view, mot_y, mot_x,
                                               cfg.temporal_halo)
@@ -257,7 +307,8 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
     # --- spatial reuse rounds ---------------------------------------------
     if cfg.restir_mode in (RESTIR_SPATIAL, RESTIR_SPATIOTEMPORAL):
         mark("di_temporal_shade")
-        rng_state, r = _spatial_reuse(cfg, view, r, rng_state)
+        rng_state, r = _spatial_reuse(cfg, view, r, rng_state, gbuf=gbuf,
+                                      cam=cam)
         mark("di_spatial")
 
     # --- shade --------------------------------------------------------------
@@ -299,7 +350,7 @@ def _disk_offset(cfg: RenderConfig, rng_state):
 
 
 def _spatial_reuse(cfg: RenderConfig, view: GBufferView, r_src: dict,
-                   rng_state):
+                   rng_state, gbuf: GBuffer = None, cam: Camera = None):
     """Spatial rounds (ref direct_stage.comp:224-255, 86-121): each round
     merges cfg.spatial_neighbors disk-distributed neighbours of the cached
     post-temporal reservoirs `r_src` (every round reads the same cache)
@@ -310,25 +361,39 @@ def _spatial_reuse(cfg: RenderConfig, view: GBufferView, r_src: dict,
     the end.  As
     there, the neighbour disk has the declared radius and the gate tests
     the actual neighbour (the reference's +-1 px pick and self-gate are
-    not replicated).  Returns (rng_state, merged reservoir)."""
+    not replicated).  Under a shard context the taps read the rank's rows
+    of `gbuf` (decoded with `cam`) and `r_src` extended by a row exchange.
+    Returns (rng_state, merged reservoir)."""
     h, w = view.depth.shape
     dev = view.depth.device
-    ys = torch.arange(h, dtype=torch.int64, device=dev)[:, None].expand(h, w)
-    xs = torch.arange(w, dtype=torch.int64, device=dev)[None, :].expand(h, w)
     # |offset| <= spatial_radius, so every in-bounds tap is inside the halo
     s_halo = int(math.ceil(cfg.spatial_radius))
+    sh = get_shard()
+    row0, H = 0, h
+    src_view, src_resv = view, r_src
+    if sh is not None:
+        H = cfg.height
+        row0 = sh.rows(H)[0]
+        ext = exchange_rows(sh, {"gbuf": gbuf, "resv": r_src}, s_halo,
+                            "direct.spatial")
+        src_view = decode_gbuffer(ext["gbuf"], cam.pos, center_rays(
+            cam, H, w, rows=_halo_rows(sh, H, s_halo, dev)))
+        src_resv = ext["resv"]
+    ys = torch.arange(row0, row0 + h, dtype=torch.int64,
+                      device=dev)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.int64, device=dev)[None, :].expand(h, w)
     spatial = empty_di_reservoir(h, w, device=dev)
     for _round in range(max(cfg.spatial_rounds, 1)):
         agg = empty_di_reservoir(h, w, device=dev)
         for _k in range(cfg.spatial_neighbors):
             rng_state, oy, ox = _disk_offset(cfg, rng_state)
             ny, nx = ys + oy, xs + ox
-            inb = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
+            inb = (ny >= 0) & (ny < H) & (nx >= 0) & (nx < w)
             not_self = (oy != 0) | (ox != 0)
-            nyc = torch.clamp(ny, 0, h - 1)
+            nyc = torch.clamp(ny, 0, H - 1)
             nxc = torch.clamp(nx, 0, w - 1)
-            n_view, _ = halo_gather_tree(view, nyc, nxc, s_halo)
-            n_resv, _ = halo_gather_tree(r_src, nyc, nxc, s_halo)
+            n_view, _ = halo_gather_tree(src_view, nyc, nxc, s_halo)
+            n_resv, _ = halo_gather_tree(src_resv, nyc, nxc, s_halo)
             gates = _spatial_gates(view, n_view) & inb & not_self
             rng_state, u = erng.rand(rng_state)
             agg = resv.resv_merge_same_target(agg, n_resv, u, enabled=gates)

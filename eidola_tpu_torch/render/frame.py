@@ -7,6 +7,12 @@ Stage chain per frame (ref renderer.cpp:163-205):
   a-trous denoise direct / indirect              -> K3 / K4
   compose (re-modulate albedo, upsample)         -> K5
   accumulation + tonemap/post                    -> K8
+
+Under a shard context (ops/halo.py, parallel/sharding.py) render_frame
+renders the rank's rows: the state's image planes hold those rows, the
+seeds take global pixel indices, and the stages exchange rows where they
+read beyond the band.  frame_idx, accum_count and prev_cam are the same
+on every rank (the camera is replicated).
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import rng as erng
+from ..ops.halo import image_rows
 from ..ops.math import ldr_to_hdr
 from ..scene.camera import Camera
 from ..scene.data import SceneData
@@ -25,9 +32,8 @@ from .config import (DEBUG_BASE_COLOR, DEBUG_DEPTH, DEBUG_DIRECT,
                      DEBUG_TEXCOORD, RenderConfig, RenderParams,
                      TonemapParams)
 from .denoise import atrous_denoise
-from .direct import DirectOut, direct_stage, empty_di_reservoir
-from .gbuffer import (GBuffer, GBufferView, center_rays, decode_gbuffer,
-                      empty_gbuffer)
+from .direct import DirectOut, direct_stage, empty_di_reservoir, history_view
+from .gbuffer import GBuffer, GBufferView, empty_gbuffer
 from .indirect import IndirectOut, empty_gi_reservoir, indirect_stage
 from .post import post_process
 
@@ -105,9 +111,10 @@ def render_frame(cfg: RenderConfig, scene: SceneData, cam: Camera,
                  timer=None):
     """One full frame.  Returns (new_state, outputs dict).  `timer`
     (utils.profiler.StageTimer) marks the stages of the frame."""
-    h, w = cfg.height, cfg.width
     stride = 2 if cfg.indirect_half_res else 1
-    h2, w2 = h // stride, w // stride
+    w, w2 = cfg.width, cfg.width // stride
+    row0, h = image_rows(cfg.height)
+    row0_h, h2 = image_rows(cfg.height // stride)
     dev = cam.pos.device
     mark = timer.mark if timer is not None else (lambda name: None)
     if timer is not None:
@@ -119,19 +126,21 @@ def render_frame(cfg: RenderConfig, scene: SceneData, cam: Camera,
     accum_count = torch.where(reset, 0.0, state.accum_count)
 
     salt = (params.time_word + state.frame_idx) & erng.M32
-    rng_full = erng.seed_pixels(h, w, salt)
-    rng_half = erng.seed_pixels(h2, w2, salt ^ 0x8F1BBCDC)
+    rng_full = erng.seed_pixels(h, w, salt, row0=row0)
+    rng_half = erng.seed_pixels(h2, w2, salt ^ 0x8F1BBCDC, row0=row0_h)
+    indirect = cfg.indirect_enabled and cfg.max_depth >= 1
+    # the history view both stages gather from (decoded once)
+    prev_view_full = (history_view(cfg, state.gbuf, state.prev_cam)
+                      if indirect else None)
 
     # ---- direct stage (K1) ---------------------------------------------
     rng_full, out_d = direct_stage(
         cfg, scene, params, cam, state.gbuf, state.di_resv, state.prev_cam,
         rng_full, prev_vis=state.di_vis, frame_idx=state.frame_idx,
-        timer=timer)
+        timer=timer, prev_view=prev_view_full)
 
     # ---- indirect stage (K2) -------------------------------------------
-    if cfg.indirect_enabled and cfg.max_depth >= 1:
-        prev_view_full = decode_gbuffer(
-            state.gbuf, state.prev_cam.pos, center_rays(state.prev_cam, h, w))
+    if indirect:
         rng_half, out_i = indirect_stage(
             cfg, scene, params, cam, out_d.view, out_d.motion,
             prev_view_full, state.gi_resv, rng_half, frame_word=salt,

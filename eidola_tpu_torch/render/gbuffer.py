@@ -64,14 +64,17 @@ class GBufferView(NamedTuple):
     transmission: torch.Tensor
 
 
-def center_rays(cam: Camera, h: int, w: int):
-    """Unjittered pixel-center rays for position reconstruction."""
+def center_rays(cam: Camera, h: int, w: int, rows=None):
+    """Unjittered pixel-center rays for position reconstruction, for every
+    row of the h x w image or for the global rows `rows` (an int tensor)."""
     dev = cam.pos.device
-    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) if rows is None
+          else rows.to(torch.float32))
+    ys = (ys + 0.5)[:, None]
     xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :]
     ndc_x = xs / w * 2.0 - 1.0
     ndc_y = 1.0 - ys / h * 2.0
-    ones = torch.ones((h, w), dtype=torch.float32, device=dev)
+    ones = torch.ones((ys.shape[0], w), dtype=torch.float32, device=dev)
     t4 = torch.stack([ndc_x * ones, ndc_y * ones, ones, ones], dim=-1)
     cam_dir = t4 @ cam.proj_inv.T
     cam_dir = cam_dir[..., :3] / torch.where(

@@ -8,6 +8,11 @@ depth-1 segment itself adds nothing, DI covers it), with tiled
 multi-bounce: exactly round(p * n_tiles) 8x8 tiles trace the deep
 bounces on a compacted lane set, compensated by 1/p.  Then a ReSTIR GI
 reservoir with temporal reuse, shading and HDR->LDR.
+
+Under a shard context (ops/halo.py) the stage renders the rank's half-res
+rows: every rank picks the same deep tiles of the whole image and keeps
+the lanes inside its rows, and the temporal gathers read the history
+extended by a row exchange.
 """
 from __future__ import annotations
 
@@ -17,9 +22,10 @@ import torch
 
 from ..ops import reservoir as resv
 from ..ops import rng as erng
-from ..ops.halo import halo_gather_tree
+from ..ops.halo import get_shard, halo_gather_tree, image_rows
 from ..ops.math import (clamp_radiance, hdr_to_ldr, luminance, make_frame,
                         normalize, offset_ray, to_local, to_world)
+from ..parallel.exchange import exchange_rows
 from ..scene.camera import Camera
 from ..scene.data import SceneData
 from .bsdf import BsdfParams, eval_bsdf, sample_bsdf
@@ -65,7 +71,10 @@ def _long_tile_lanes(cfg: RenderConfig, frame_word, h2: int, w2: int):
     workgroup).  The tiles are the first k of the tile ids ordered by a
     pcg2d key salted with the frame word, exactly as the JAX package picks
     them.  Returns (flat lane indices (k*ts*ts,) with out-of-image lanes
-    set to the sentinel h2*w2, inverse scale n_tiles / k)."""
+    set to the sentinel h2*w2, inverse scale n_tiles / k).  Under a shard
+    context every rank makes the same choice over the whole image and
+    keeps only the lanes of its rows, as indices into them (no sentinel);
+    a tile that straddles two ranks is split between them."""
     ts = cfg.multibounce_tile
     th = (h2 + ts - 1) // ts
     tw = (w2 + ts - 1) // ts
@@ -81,8 +90,13 @@ def _long_tile_lanes(cfg: RenderConfig, frame_word, h2: int, w2: int):
     rows = ty[:, None, None] * ts + d[None, :, None]
     cols = tx[:, None, None] * ts + d[None, None, :]
     inside = (rows < h2) & (cols < w2)
+    inv_p = float(n_tiles) / float(k_long)
+    if get_shard() is not None:
+        row0, n = image_rows(h2)
+        mine = inside & (rows >= row0) & (rows < row0 + n)
+        return ((rows - row0) * w2 + cols)[mine], inv_p
     flat = torch.where(inside, rows * w2 + cols, h2 * w2).reshape(-1)
-    return flat, float(n_tiles) / float(k_long)
+    return flat, inv_p
 
 
 def indirect_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
@@ -94,8 +108,10 @@ def indirect_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
     (utils.profiler.StageTimer) marks gi_trace and gi_resample.
     Returns (rng_state, IndirectOut)."""
     stride = 2 if cfg.indirect_half_res else 1
-    h2 = cfg.height // stride
+    H2 = cfg.height // stride
     w2 = cfg.width // stride
+    h2 = image_rows(H2)[1]
+    sh = get_shard()
     dev = rng_state.device
     f32 = dict(dtype=torch.float32, device=dev)
     mark = timer.mark if timer is not None else (lambda name: None)
@@ -135,7 +151,7 @@ def indirect_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
             rng_state, L_one_all, _ = trace_radiance(
                 cfg, scene, params, None, None, rng_state, num_bounces=1,
                 start_state=xs_state, start_wo=-d1, nee_start_depth=0)
-            flat, inv_p = _long_tile_lanes(cfg, frame_word, h2, w2)
+            flat, inv_p = _long_tile_lanes(cfg, frame_word, H2, w2)
             gidx = torch.clamp(flat, max=h2 * w2 - 1)
 
             def g(a):
@@ -177,11 +193,15 @@ def indirect_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
         motion = motion_full[::stride, ::stride]
         m_ok = motion[..., 0] >= 0
         hist_y2 = torch.clamp(torch.div(motion[..., 0], stride,
-                                        rounding_mode="floor"), 0, h2 - 1)
+                                        rounding_mode="floor"), 0, H2 - 1)
         hist_x2 = torch.clamp(torch.div(motion[..., 1], stride,
                                         rounding_mode="floor"), 0, w2 - 1)
-        hist_resv, r_halo = halo_gather_tree(
-            prev_resv, hist_y2, hist_x2, max(cfg.temporal_halo // stride, 1))
+        halo2 = max(cfg.temporal_halo // stride, 1)
+        if sh is not None:
+            prev_resv = exchange_rows(sh, prev_resv, halo2,
+                                      "indirect.history_resv")
+        hist_resv, r_halo = halo_gather_tree(prev_resv, hist_y2, hist_x2,
+                                             halo2)
         # geometric gates vs the history G-buffer at the full-res coord
         hy = torch.clamp(motion[..., 0], 0, cfg.height - 1)
         hx = torch.clamp(motion[..., 1], 0, cfg.width - 1)

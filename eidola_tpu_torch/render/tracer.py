@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import rng as erng
+from ..ops.halo import get_bands
 from ..ops.math import (dot3, make_frame, offset_ray, power_heuristic,
                         to_local, to_world)
 from ..ops.packets import (any_hit_img, any_hit_sorted, closest_hit_img,
@@ -76,15 +77,17 @@ def _merge_closest(a, b):
     return type(a)(*[torch.where(take_b, y, x) for x, y in zip(a, b)])
 
 
-def _march_caps(R: int) -> list[int]:
-    """Lap capacities of the queue march (tracer.py:138-187): about
-    R/EIDOLA_MARCH_DIV rounded to packets, then a quarter of that while
-    the pending count falls, down to EIDOLA_MARCH_MIN."""
+def _march_caps(R: int, B: int = 1) -> list[int]:
+    """Lap capacities of the queue march over one band of R rays when a
+    band context splits the rays into B bands (tracer.py:138-187): about
+    R/EIDOLA_MARCH_DIV rounded to packets, but at least 32768/B, then a
+    quarter of that while the pending count falls, down to
+    EIDOLA_MARCH_MIN/B (at least 2048)."""
     div = int(os.environ.get("EIDOLA_MARCH_DIV", "16"))
     frac = -(-R // div)
-    caps = [int(min(R, max(32768, -(-frac // 128) * 128)))]
+    caps = [int(min(R, max(32768 // B, -(-frac // 128) * 128)))]
     cmin = min(caps[0], max(2048, int(os.environ.get("EIDOLA_MARCH_MIN",
-                                                     "8192"))))
+                                                     "8192")) // B))
     while caps[-1] > cmin and len(caps) < 3:
         caps.append(max(-(-(caps[-1] // 4) // 128) * 128, cmin))
     return caps
@@ -92,35 +95,52 @@ def _march_caps(R: int) -> list[int]:
 
 def _alpha_march(scene: SceneData, hop_bvh, o, d, a_tmax, rec0, rng_state,
                  budget: int, max_steps: int, occl: bool):
-    """The HitTest hop loop on a compacted queue (tracer.py:95-257, one
-    band): each lap takes up to `cap` rays whose record is an untested
-    alpha hit (`torch.nonzero`, in index order), runs the alpha test and
-    the re-trace at that width, and scatters the results back.  Per ray
-    the same tests and re-traces as the lockstep loop; only the BLEND rng
+    """The HitTest hop loop on a compacted queue (tracer.py:95-257): each
+    lap takes up to `cap` rays whose record is an untested alpha hit
+    (`torch.nonzero`, in index order), runs the alpha test and the
+    re-trace at that width, and scatters the results back.  Per ray the
+    same tests and re-traces as the lockstep loop; only the BLEND rng
     stream differs (one draw per queued test, not per lane per hop).
     occl=True counts `budget` tests (a solid hit occludes); occl=False
-    counts `budget` re-traces, whose last hit may stand untested.
+    counts `budget` re-traces, whose last hit may stand untested.  Under a
+    band context that splits the rays into whole packets the march runs
+    band by band, each band with its own queue (the JAX package's vmap
+    over bands): per ray the hops and the BLEND draws do not change.
     Returns (rng_state, rec, occluded) shaped like rec0."""
     shape = tuple(rec0.t.shape)
     R = rec0.t.numel()
     dev = rec0.t.device
-    o_f, d_f = o.reshape(R, 3), d.reshape(R, 3)
     tmax_f = torch.broadcast_to(torch.as_tensor(a_tmax, dtype=torch.float32,
                                                 device=dev), shape).reshape(R)
     rec = [x.reshape(R).clone() for x in rec0]
     rng_f = rng_state.reshape(R).clone()
+    B = get_bands()
+    if not (B > 1 and R % B == 0 and (R // B) % 128 == 0):
+        B = 1
+    Rl = R // B
+    occluded = torch.zeros(R, dtype=torch.bool, device=dev)
+    for b in range(B):      # views: each band's march writes in place
+        s = slice(b * Rl, (b + 1) * Rl)
+        _march_band(scene, hop_bvh, o.reshape(R, 3)[s], d.reshape(R, 3)[s],
+                    tmax_f[s], [x[s] for x in rec], rng_f[s], occluded[s],
+                    type(rec0), budget, max_steps, occl, _march_caps(Rl, B))
+    rec = type(rec0)(*[x.reshape(shape) for x in rec])
+    return rng_f.reshape(shape), rec, occluded.reshape(shape)
+
+
+def _march_band(scene, hop_bvh, o_f, d_f, tmax_f, rec, rng_f, occluded,
+                rec_type, budget, max_steps, occl, caps):
+    """The hop loop over one band of flat rays; updates rec (a list of
+    flat planes), rng_f and occluded in place."""
     pending = rec[0] >= 0
     if not occl and budget <= 0:
         pending = torch.zeros_like(pending)
     bleft = torch.where(pending, budget, 0)
-    occluded = torch.zeros(R, dtype=torch.bool, device=dev)
-
-    caps = _march_caps(R)
     for k, cap in enumerate(caps):
         nxt = caps[k + 1] if k + 1 < len(caps) else 0
         while int(pending.sum()) > nxt:
             sel = torch.nonzero(pending)[:cap, 0]
-            rec_sel = type(rec0)(*[x[sel] for x in rec])
+            rec_sel = rec_type(*[x[sel] for x in rec])
             rng_new, pt = _alpha_passthrough(scene, rec_sel, rng_f[sel])
             b_sel = bleft[sel]
             if occl:
@@ -141,8 +161,6 @@ def _alpha_march(scene: SceneData, hop_bvh, o, d, a_tmax, rec0, rng_state,
             pending[sel] = go & (rec2.tri >= 0) & (occl | (b_sel > 0))
             occluded[sel] |= occ_new
             bleft[sel] = b_sel
-    rec = type(rec0)(*[x.reshape(shape) for x in rec])
-    return rng_f.reshape(shape), rec, occluded.reshape(shape)
 
 
 def _march_mode(device) -> str:

@@ -81,11 +81,15 @@ def advance(cam: Camera) -> Camera:
                         last_pos=cam.pos)
 
 
-def spawn_rays(cam: Camera, height: int, width: int, seed_state):
-    """Jittered pinhole rays for every pixel.  seed_state: (H, W) RNG state;
-    returns (state, origins (H,W,3), dirs (H,W,3))."""
+def spawn_rays(cam: Camera, height: int, width: int, seed_state,
+               row0: int = 0):
+    """Jittered pinhole rays for every pixel of a height x width image.
+    seed_state: (h, W) RNG state of the h rows from global row `row0` (the
+    whole image by default); returns (state, origins (h,W,3), dirs
+    (h,W,3))."""
     dev = seed_state.device
-    ys = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    ys = torch.arange(row0, row0 + seed_state.shape[0], dtype=torch.float32,
+                      device=dev)[:, None]
     xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     seed_state, jx = erng.rand(seed_state)
     seed_state, jy = erng.rand(seed_state)

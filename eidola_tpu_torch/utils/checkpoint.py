@@ -14,28 +14,30 @@ import numpy as np
 import torch
 
 
-def _flatten(tree) -> list:
+def tree_leaves(tree) -> list:
+    """The tensors of a tree (NamedTuples, tuples, lists, dicts; None
+    skipped) in jax.tree_util's order."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _flatten(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
-        return [x for item in tree for x in _flatten(item)]
+        return [x for item in tree for x in tree_leaves(item)]
     return [tree]
 
 
-def _unflatten(template, leaves):
+def tree_unflatten(template, leaves):
     """`template`'s structure with its leaves taken in order from the
     iterator `leaves`."""
     if template is None:
         return None
     if isinstance(template, dict):
-        filled = {k: _unflatten(template[k], leaves) for k in sorted(template)}
+        filled = {k: tree_unflatten(template[k], leaves) for k in sorted(template)}
         return {k: filled[k] for k in template}
     if isinstance(template, tuple) and hasattr(template, "_fields"):
-        return type(template)(*[_unflatten(x, leaves) for x in template])
+        return type(template)(*[tree_unflatten(x, leaves) for x in template])
     if isinstance(template, (tuple, list)):
-        return type(template)(_unflatten(x, leaves) for x in template)
+        return type(template)(tree_unflatten(x, leaves) for x in template)
     return next(leaves)
 
 
@@ -44,14 +46,14 @@ def save_pytree(path: str, tree) -> None:
     np.savez_compressed(path, **{
         f"leaf_{i}": (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
                       else np.asarray(x))
-        for i, x in enumerate(_flatten(tree))})
+        for i, x in enumerate(tree_leaves(tree))})
 
 
 def load_pytree(path: str, template):
     """Load into the structure of `template` (e.g. init_frame_state(...)),
     each leaf on the template leaf's device in its dtype; a leaf count or
     shape that differs raises ValueError."""
-    leaves = _flatten(template)
+    leaves = tree_leaves(template)
     with np.load(path) as data:
         if len(leaves) != len(data.files):
             raise ValueError(f"checkpoint has {len(data.files)} leaves, "
@@ -65,4 +67,4 @@ def load_pytree(path: str, template):
             dtype = torch.empty((), dtype=old.dtype).numpy().dtype
             new.append(torch.from_numpy(np.array(arr, dtype, order="C"))
                        .to(old.device))
-    return _unflatten(template, iter(new))
+    return tree_unflatten(template, iter(new))

@@ -323,3 +323,43 @@ def test_device_monitor_on_the_card(cuda):
     assert mon.bytes_in_use[-1] >= x.numel() * 4
     assert mon.bytes_limit > 2**30 and mon.host_rss[-1] > 0
     assert torch.cuda.get_device_name(cuda) in mon.summary()
+
+
+@pytest.mark.cuda
+def test_sharded_step_world_one_over_nccl(cuda):
+    """chip_smoke.py's multidevice phase (b) at a small size: the sharded
+    step at world size 1 over NCCL, through the walk kernels, equal to the
+    single-process frame on the card (the bounds of
+    tests/test_parallel.py:45-46)."""
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.ops import packets as TP
+    from eidola_tpu_torch.parallel import exchange as X
+    from eidola_tpu_torch.parallel.sharding import free_port, render_rank
+    from eidola_tpu_torch.render.config import (RenderConfig,
+                                                default_params,
+                                                default_tonemap)
+    from eidola_tpu_torch.render.frame import init_frame_state, make_step
+
+    cfg = RenderConfig(width=64, height=64, max_depth=2,
+                       traversal_max_steps=1024)
+    scene, cam = load_scene("cornell", device=cuda)
+    job = dict(scene="cornell", cfg=cfg, frames=3, device="cuda",
+               trav="pallas")
+    group = X.init_group(0, 1, "nccl", f"tcp://localhost:{free_port()}")
+    try:
+        res = render_rank(group, job, scene, cam)
+    finally:
+        X.close_group()
+    params, tm = default_params(device=cuda), default_tonemap(device=cuda)
+    state, step = init_frame_state(cfg, cam), make_step(cfg)
+    TP.TRAV, trav = "pallas", TP.TRAV
+    try:
+        for _ in range(3):
+            state, out = step(scene, cam, params, tm, state)
+    finally:
+        TP.TRAV = trav
+    diff = np.abs(res["images"][-1] - out["image"].cpu().numpy())
+    assert diff.max() < 5e-2 and diff.mean() < 2e-3, (diff.max(), diff.mean())
+    assert res["launches"]["walk_closest"] > 0
+    assert res["launches"]["walk_any"] > 0
+    assert res["audit"]["total"] >= 0 and res["rows"]["gbuf"] == 64

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import eidola_tpu.native as j_native
+import eidola_tpu_torch.native as t_native
 from eidola_tpu.models.scenes import cornell_box, stress_grid
 from eidola_tpu.ops import alias_table as j_alias
 from eidola_tpu.ops import halo as j_halo
@@ -240,7 +242,24 @@ def test_reservoir_algebra_matches():
 
 # --------------------------------------------------------------- alias
 
-def test_alias_table_and_draws_match():
+def same_host_builders(monkeypatch):
+    """Give the port the host builder the JAX side takes in this process.
+    `eidola_tpu.native.get_lib()` is None when its library did not load
+    (no compiler, or another test worker was still writing the file); the
+    JAX side then builds in numpy, and the port must too, since the C++
+    and numpy builders differ in the last bits."""
+    if j_native.get_lib() is None:
+        monkeypatch.setattr(t_native, "_lib", None)
+        monkeypatch.setattr(t_native, "_tried", True)
+
+
+def jax_native_off(monkeypatch):
+    """Turn the JAX package's native library off in this process."""
+    monkeypatch.setattr(j_native, "_lib", None)
+    monkeypatch.setattr(j_native, "_tried", True)
+
+
+def _check_alias():
     w = RNG.exponential(1.0, 300)
     w[::7] = 0.0
     tj, total_j = j_alias.make_alias_table(w)
@@ -256,6 +275,19 @@ def test_alias_table_and_draws_match():
                                   jnp.asarray(u1), jnp.asarray(u2))
     exact(ip, ij)
     close(pp, pj, rtol=0, atol=0)
+
+
+def test_alias_table_and_draws_match(monkeypatch):
+    same_host_builders(monkeypatch)
+    _check_alias()
+
+
+def test_alias_table_matches_with_jax_native_off(monkeypatch):
+    """The JAX side on its numpy builder: the port follows it."""
+    jax_native_off(monkeypatch)
+    same_host_builders(monkeypatch)
+    assert t_native.get_lib() is None
+    _check_alias()
 
 
 # ------------------------------------------------------------------ bsdf

@@ -30,6 +30,7 @@ import eidola_tpu_torch
 from eidola_tpu_torch.ops import bvh as TB
 from eidola_tpu_torch import interop
 from eidola_tpu_torch.models import scenes as TS
+from test_torch_foundations import jax_native_off, same_host_builders
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,7 +70,22 @@ def _with_table(jbvh):
     ("cornell_box", {}), ("boxes_sunsky", {}), ("stress_grid", {"n": 2}),
     ("bistro_standin", {"target_mtris": 0.02}),
     ("bistro_hdr", {"target_mtris": 0.02})])
-def test_scene_arrays_equal_jax(name, kwargs):
+def test_scene_arrays_equal_jax(name, kwargs, monkeypatch):
+    same_host_builders(monkeypatch)
+    _check_scene(name, kwargs)
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("cornell_box", {}), ("bistro_standin", {"target_mtris": 0.02})])
+def test_scene_arrays_equal_jax_native_off(name, kwargs, monkeypatch):
+    """The JAX side on its numpy builders (its library forced off): the
+    port follows it onto its own numpy builders and stays bitwise."""
+    jax_native_off(monkeypatch)
+    same_host_builders(monkeypatch)
+    _check_scene(name, kwargs)
+
+
+def _check_scene(name, kwargs):
     js, jcam = getattr(JS, name)(**kwargs)
     ts, tcam = getattr(TS, name)(device="cpu", **kwargs)
     assert ts.bvh.leaf_size == js.bvh.leaf_size == 8
