@@ -21,14 +21,31 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    ray goes through the one-kernel walk; prints ms/frame over frames 2-4
    and the stage split;
 5. GI-xla phase: the same default frame under the default traversal at
-   960x540, 2 frames, so the drain kernels run on sorted GI rays;
+   960x540, 2 frames, so the drain kernels run on sorted GI rays; the
+   torch walk's largest call runs again under EIDOLA_COMPACT=0 and 1
+   (staged live-packet compaction) in turns on the same rays: hits,
+   steps and leaf events bitwise equal, with the times and the stages;
 6. standin phase: the JAX bench's headline frame, bistro_standin (2.89M
    instanced triangles, textures, alpha-MASK foliage split into a flat
    BVH) at 1920x1080 with the default RenderConfig and the alpha HitTest
    on (set by the app from the scene), EIDOLA_TRAV=pallas, 2 frames:
    the walk kernels trace the instanced opaque bulk (closest and any
    hit) and the flat alpha BVH, and no drain kernel runs;
-7. interactive phase: bistro_standin at 1920x1080 under
+7. options phase: the same frame under each of the JAX package's build
+   and trace options, the switch in the environment: (s) EIDOLA_SBVH=1,
+   (f) EIDOLA_ALPHA_FLAT=0, (c) EIDOLA_ALPHA_CULL=1, (d)
+   EIDOLA_DI_SHADOW=sorted ((c) and (d) on the standin phase's scene);
+   each prints its build, frame 2 and stages beside the standin phase's,
+   its walk launches and its image and primary hits against the standin
+   frame (bounds: (s), (c), (d) bitwise, a primary triangle differing
+   only at an exact-t tie; (f) mean abs 2e-3, max abs 5e-2 on all but
+   100 pixels, under 100 primary hits at another depth); (s) the
+   alpha BVH's build, nodes and duplicated references, (s) and (f) their largest alpha walk against the default alpha BVH on
+   the same rays (steps and leaf events a packet) and bitwise against
+   walk_ref, (c) the share of rays culled; then one more standin frame
+   under EIDOLA_COUNT_RAYS=1: the live rays per front door and the
+   Mrays/s they give at the standin frame's time;
+8. interactive phase: bistro_standin at 1920x1080 under
    EIDOLA_TRAV=pallas, 4 frames, with --orbit 0.01 --restir
    spatiotemporal --shadow-cadence 4 --primary-seed: the camera moves
    every frame, so after every frame the accumulation count is 1 and on
@@ -37,7 +54,7 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    instanced bulk apart by frame, frame 0's (no seed yet) and the seeded
    ones of frames 2-4 (t_max bounded on some lanes by the last frame's
    triangle), and prints the share of lanes each seed bounds;
-8. gltf phase: bistro_standin's parts written as a GLB (about 2.9M
+9. gltf phase: bistro_standin's parts written as a GLB (about 2.9M
    instanced triangles: one glTF mesh per part, one primitive per
    material, one node per instance, PNG textures, alpha-MASK leaf cards,
    the scene's camera) and a 2048x1024 equirect .hdr (a sun-like hot
@@ -50,7 +67,7 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    instanced and the alpha BVH and no drain did, frame_idx goes 3 then
    5, the image is finite and the PNG decodes (utils/png.py) to
    1080x1920 RGB;
-9. viewer phase: the port's viewer in this process (app/viewer.start:
+10. viewer phase: the port's viewer in this process (app/viewer.start:
    its render and worker threads, the HTTP server on 127.0.0.1:0) on
    cornell at 1920x1080 under EIDOLA_TRAV=pallas; after a few frames
    POST /scene drops in the GLB and the .hdr; /stats is polled until it
@@ -64,13 +81,13 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    textures and lights; prints the full frames' and the preview frames'
    times and counts, the PNG encode, the GLB's load on the worker, the
    warm-up frames, the fps, the walk launches and the device monitor;
-10. standin DI phase: bistro_standin at 1920x1080 with --no-denoise
+11. standin DI phase: bistro_standin at 1920x1080 with --no-denoise
    --no-indirect under the default traversal, 2 frames: the instanced
    torch walk with the fused drains on object-space rays;
-11. mxu phase: the same DI frame under EIDOLA_MT=mxu, 2 frames: every
+12. mxu phase: the same DI frame under EIDOLA_MT=mxu, 2 frames: every
    closest-hit drain goes through mt_mxu, and neither the fused drains
    nor the walk kernels run;
-12. multidevice phase, the row-sharded frame (parallel/sharding.py) on
+13. multidevice phase, the row-sharded frame (parallel/sharding.py) on
    bistro_standin at 1920 wide, the default RenderConfig with the HitTest,
    EIDOLA_TRAV=pallas: (a) one process at 1920x1088 (padded_height(1080,
    8)) under band_context(8) against the same 2 frames unbanded, with the
@@ -91,13 +108,13 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    and every opaque triangle tested without the BVH; and the opaque
    walk's hits and packets at the step cap, as 8x16 tiles against the
    bands' scanline packets;
-   each of phases 3-12 sets every launch count to 0 just before it and
+   each of phases 3-13 sets every launch count to 0 just before it and
    reads them just after, checks the image (shape, finite, in [0, 1],
    not black) and the accumulation count, that each kernel of its path
    was launched and that the kernels of the other paths were not, and
    keeps the arguments of each kernel's largest call (the walk kernels'
    largest instanced and largest flat call apart);
-13. kernel phase: each kernel on those arguments (the frames' own shapes:
+14. kernel phase: each kernel on those arguments (the frames' own shapes:
    leaf 64, the full bistro tables) against its plain torch version on
    the card, bitwise, with times from CUDA events: the whole wrapper
    call, the kernel alone (its bare launch on arguments already
@@ -116,19 +133,20 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    warps), which the frames do not hold; for mt_any_fused and mt_mxu
    also what each call's data asks of the kernel (lanes alive, warp
    steps taken, triangles past the vote after the u test);
-14. goldens on the card: cornell, punctual, textured, hdr and alpha (the
+15. goldens on the card: cornell, punctual, textured, hdr and alpha (the
    HitTest on) at 64x64, max_depth=2, traversal_max_steps=1024, 4
    frames, through the walk kernel, each within 0.02 mean abs of
    tests/golden/*_64_d2_f4.npy;
-15. holds small DI frames on the card against the same frames through
+16. holds small DI frames on the card against the same frames through
    the plain versions on the CPU (cornell 32x32, stress 64x64);
-16. prints one JSON line with an entry per kernel and path (the
+17. prints one JSON line with an entry per kernel and path (the
    bistro_flat DI and GI frames, the standin frame, the interactive
    frame, the GLB frame, the viewer, the multidevice (b) rank, the
-   standin DI frames with the fused and the mxu drains): that phase's
-   launches and
+   standin DI frames with the fused and the mxu drains, the options
+   phase's SBVH and instanced alpha walks): that phase's launches and
    the kernel's error, times (`ms` the wrapper call, `kernel_ms` the
-   kernel alone) and bound on the phase's largest call;
+   kernel alone) and bound on the phase's largest call, after a line
+   with the script's seconds in all;
    then, last, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.
@@ -238,11 +256,12 @@ def _reset_launches() -> None:
 class Capture:
     """While active, records the size of every call of the named wrappers
     of `module` and keeps the arguments (positional, keyword) of each
-    one's largest call, under `key(name, kw)` (default: the name).  The
+    one's largest call, under `key(name, args, kw)` (default: the name).  The
     wrapper itself still runs and counts its launch (its callers look it
     up on the module at each call); this only watches."""
 
-    def __init__(self, module, names, size, key=lambda name, kw: name):
+    def __init__(self, module, names, size,
+                 key=lambda name, args, kw: name):
         self.module, self.names, self.size = module, names, size
         self.key = key
         self.sizes = {}
@@ -256,7 +275,7 @@ class Capture:
 
     def _watch(self, name, fn):
         def call(*args, **kw):
-            n, key = self.size(args), self.key(name, kw)
+            n, key = self.size(args), self.key(name, args, kw)
             sizes = self.sizes.setdefault(key, [])
             if n > max(sizes, default=0):
                 self.args[key] = (args, kw)
@@ -299,7 +318,7 @@ class PrimaryWatch:
 
         direct.trace_closest = self.orig
 
-    def key(self, name, kw):
+    def key(self, name, args, kw):
         key = name + ("+inst" if kw.get("inst") is not None else "")
         if self.inside and name == "walk_closest":
             key += f"+seeded{self.frame}" if self.frame else "+primary0"
@@ -347,8 +366,8 @@ def walk_capture():
     from eidola_tpu_torch.ops import bvh_walk
 
     return Capture(bvh_walk, WALKS, lambda a: a[2].shape[1],     # packets
-                   lambda name, kw: name + ("+inst" if kw.get("inst")
-                                            is not None else ""))
+                   lambda name, args, kw: name + ("+inst" if kw.get("inst")
+                                                  is not None else ""))
 
 
 def mxu_capture():
@@ -516,6 +535,415 @@ def seed_effect(call, label) -> None:
           f"{100.0 * (ev_s / ev_u - 1.0):+.1f}%); cuda {ms[0]:.4f} / "
           f"{ms[1]:.4f} ms; same winner on "
           f"{float((k_s == k_u).float().mean()):.6f} of the lanes",
+          flush=True)
+
+
+class SceneWatch:
+    """While active, headless.load_scene returns `reuse` (a loaded (scene,
+    camera)) when one is given, else loads as usual and times each build
+    of a flat alpha BVH (scene/data.build_bvh, which an instanced scene
+    calls for that alone); either way it keeps what it returned in
+    `loaded` and the alpha BVH's walk table, so that `key` can give that
+    BVH's walk calls the suffix "+alpha"."""
+
+    def __init__(self, reuse=None):
+        self.reuse, self.loaded = reuse, None
+        self.alpha_ptr, self.alpha_s = None, []
+
+    def __enter__(self):
+        from eidola_tpu_torch.app import headless
+        from eidola_tpu_torch.scene import data
+
+        self.orig = headless.load_scene, data.build_bvh
+
+        def load(name, *, device):
+            self.loaded = self.reuse or self.orig[0](name, device=device)
+            alpha = self.loaded[0].bvh_alpha
+            self.alpha_ptr = None if alpha is None else alpha.walk.data_ptr()
+            return self.loaded
+
+        def build(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.orig[1](*args, **kw)
+            self.alpha_s.append(time.perf_counter() - t0)
+            return out
+
+        headless.load_scene, data.build_bvh = load, build
+        return self
+
+    def __exit__(self, *exc):
+        from eidola_tpu_torch.app import headless
+        from eidola_tpu_torch.scene import data
+
+        headless.load_scene, data.build_bvh = self.orig
+
+    def key(self, name, args, kw):
+        key = name + ("+inst" if kw.get("inst") is not None else "")
+        return key + ("+alpha" if args[0].data_ptr() == self.alpha_ptr
+                      else "")
+
+
+class ReachWatch:
+    """While active, counts for every alpha pre-cull (tracer._reach_boxes)
+    the live rays it is given (t_max >= t_min) and those it culls (device
+    sums, read after the run)."""
+
+    def __enter__(self):
+        import torch
+
+        from eidola_tpu_torch.render import tracer
+
+        self.orig, self.counts = tracer._reach_boxes, []
+
+        def reach(boxes, o, d, t_min, t_max):
+            out = self.orig(boxes, o, d, t_min, t_max)
+            f32 = dict(dtype=torch.float32, device=out.device)
+            live = (torch.as_tensor(t_max, **f32)
+                    >= torch.as_tensor(t_min, **f32)).expand(out.shape)
+            self.counts.append((live.sum(), (live & ~out).sum()))
+            return out
+
+        tracer._reach_boxes = reach
+        return self
+
+    def __exit__(self, *exc):
+        from eidola_tpu_torch.render import tracer
+
+        tracer._reach_boxes = self.orig
+
+    def shares(self) -> tuple[int, int, int]:
+        """(calls, live rays given, rays culled)."""
+        return (len(self.counts), sum(int(a) for a, _ in self.counts),
+                sum(int(b) for _, b in self.counts))
+
+
+class LedgerWatch:
+    """While active, empties the ray ledger (ops/packets.RAY_LEDGER,
+    RAY_DOORS) before each frame and keeps each frame's (door, live rays)
+    entries."""
+
+    def __enter__(self):
+        from eidola_tpu_torch.app import headless
+        from eidola_tpu_torch.ops import packets
+
+        self.orig, self.frames = headless.make_step, []
+
+        def make_step(cfg):
+            step = self.orig(cfg)
+
+            def counted(*args, **kw):
+                packets.RAY_LEDGER.clear()
+                packets.RAY_DOORS.clear()
+                out = step(*args, **kw)
+                self.frames.append(list(zip(packets.RAY_DOORS,
+                                            packets.RAY_LEDGER)))
+                return out
+            return counted
+
+        headless.make_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        from eidola_tpu_torch.app import headless
+
+        headless.make_step = self.orig
+
+
+class Environ:
+    """While active, sets the environment variables `env` (and the port's
+    bvh.SBVH, which reads EIDOLA_SBVH at import), then restores them."""
+
+    def __init__(self, env: dict):
+        self.env = env
+
+    def __enter__(self):
+        from eidola_tpu_torch.ops import bvh
+
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        self.sbvh = bvh.SBVH
+        os.environ.update(self.env)
+        bvh.SBVH = os.environ.get("EIDOLA_SBVH", "0") == "1"
+        return self
+
+    def __exit__(self, *exc):
+        from eidola_tpu_torch.ops import bvh
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        bvh.SBVH = self.sbvh
+
+
+def _image_held(res, base, pixels: int = 0) -> tuple[str, bool]:
+    """A variant's last frame against the default one: the max and mean
+    abs difference over the image, the pixels at or past the max bound,
+    and the pixels whose primary triangle differs (the G-buffer's), split
+    into exact-t ties (the same depth) and hits at another depth (the
+    variant's nearer or farther).  With no `pixels` the image must be
+    bitwise the default's and a primary triangle may differ only at an
+    exact-t tie.  With `pixels`: mean below MD_MEAN, and fewer than
+    `pixels` past MD_MAX and fewer at another depth (a ray that meets an
+    alpha card on the edge its two triangles share, tested in another
+    space, may pass through it: tests/test_torch_options.py
+    test_alpha_instanced_falls_through_like_jax)."""
+    import numpy as np
+    import torch
+
+    img, ref = res["image"], base["image"]
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        fail(f"image {img.shape} not finite or not {ref.shape}")
+    d = np.abs(img - ref).max(-1)
+    mean = float(np.abs(img - ref).mean())
+    g, b = res["state"].gbuf, base["state"].gbuf
+    other = g.tri != b.tri
+    tie = other & (g.depth.view(torch.int32) == b.depth.view(torch.int32))
+    nearer = other & ~tie & (g.depth < b.depth)
+    n_other, n_tie, n = int(other.sum()), int(tie.sum()), other.numel()
+    past = d >= MD_MAX
+    n_past = int(past.sum())
+    n_past_same = int((past & ~other.cpu().numpy()).sum())
+    bounds = (f"mean {MD_MEAN}; under {pixels} pixels past {MD_MAX} and "
+              f"under {pixels} at another depth" if pixels else
+              "bitwise, another primary triangle only at an exact-t tie")
+    text = (f"max abs diff {float(d.max()):.3e}, mean {mean:.3e}; "
+            f"{n_past} pixels at or past {MD_MAX} ({n_past_same} of them "
+            f"with the same primary triangle); primary triangle differs on "
+            f"{n_other} of {n} pixels ({n_tie} exact-t ties, "
+            f"{n_other - n_tie} at another depth, the variant's nearer on "
+            f"{int(nearer.sum())}) (bounds: {bounds})")
+    if pixels:
+        ok = mean < MD_MEAN and max(n_past, n_other - n_tie) < pixels
+    else:
+        ok = float(d.max()) == 0.0 and n_other == n_tie
+    return text, ok
+
+
+def _walk_counts(walk, leaf_blocks, rays, max_steps, inst):
+    """(steps, leaf events, hit lanes, ms) of walk_closest on these rays."""
+    import torch
+
+    from eidola_tpu_torch.ops import bvh_walk as W
+
+    P = rays.shape[1]
+    stats = torch.zeros((P, 2), dtype=torch.int32, device=rays.device)
+    out = W.walk_closest(walk, leaf_blocks, rays, max_steps, stats=stats,
+                         inst=inst)
+    ms = time_ms(lambda: W.walk_closest(walk, leaf_blocks, rays, max_steps,
+                                        inst=inst), 3)
+    return (int(stats[:, 0].sum()), int(stats[:, 1].sum()), out, ms)
+
+
+def alpha_walk_ab(label, call, base_alpha) -> None:
+    """The variant's largest alpha-BVH walk against the default alpha BVH
+    on the same rays: steps and leaf events a packet, hit lanes, time."""
+    import torch
+
+    (walk, leaf_blocks, rays, max_steps), kw = call
+    P = rays.shape[1]
+    st_v, ev_v, out_v, ms_v = _walk_counts(walk, leaf_blocks, rays,
+                                           max_steps, kw.get("inst"))
+    st_b, ev_b, out_b, ms_b = _walk_counts(base_alpha.walk,
+                                           base_alpha.leaf_blocks, rays,
+                                           max_steps, None)
+    same_t = float((out_v[0].view(torch.int32) == out_b[0].view(torch.int32))
+                   .float().mean())
+    hv, hb = out_v[1] >= 0, out_b[1] >= 0
+    depth = (hv != hb) | (hv & hb & ((out_v[0] - out_b[0]).abs()
+                                     > 1e-4 * torch.maximum(out_v[0],
+                                                            out_b[0])))
+    print(f"{label}: largest alpha-BVH walk ({P} packets), this BVH / the "
+          f"default flat SAH alpha BVH on the same rays: steps {st_v} / "
+          f"{st_b} ({st_v / P:.2f} / {st_b / P:.2f} a packet, "
+          f"{100.0 * (st_v / st_b - 1.0):+.1f}%), leaf events {ev_v} / {ev_b}"
+          f" ({ev_v / P:.2f} / {ev_b / P:.2f} a packet, "
+          f"{100.0 * (ev_v / ev_b - 1.0):+.1f}%); hit lanes "
+          f"{float((out_v[1] >= 0).float().mean()):.4f} / "
+          f"{float((out_b[1] >= 0).float().mean()):.4f}, t bitwise equal on "
+          f"{same_t:.6f} of the lanes, another depth on "
+          f"{int(depth.sum())}; cuda {ms_v:.4f} / {ms_b:.4f} ms",
+          flush=True)
+
+
+OPTIONS = (   # tag, environment, reuses the default scene, and the
+    # pixels that may be past the max bound and at another depth than the
+    # default frame's (0: bitwise); (f) read 2 and 18 of 2073600
+    ("s", {"EIDOLA_SBVH": "1"}, False, 0),
+    ("f", {"EIDOLA_ALPHA_FLAT": "0"}, False, 100),
+    ("c", {"EIDOLA_ALPHA_CULL": "1"}, True, 0),
+    ("d", {"EIDOLA_DI_SHADOW": "sorted"}, True, 0),
+)
+
+
+def options_phase(base, base_loaded):
+    """The JAX package's build and trace options on the standin frame
+    (bistro_standin 1920x1080, default RenderConfig with the HitTest,
+    pallas, 2 frames each through the headless entry point, the switch set
+    in the environment): (s) EIDOLA_SBVH=1, (f) EIDOLA_ALPHA_FLAT=0, (c)
+    EIDOLA_ALPHA_CULL=1, (d) EIDOLA_DI_SHADOW=sorted; (c) and (d) reuse
+    the default frame's scene (`base_loaded`).  Each against `base`, the
+    default standin frame of this call: frame 2's time and stages, the
+    image (bound: the sharded frame's), the primary hits, the walk
+    launches; (s) and (f) also their builds and the largest alpha walk
+    against the default alpha BVH on the same rays, checked bitwise
+    against walk_ref; (c) the share of rays culled.  Then the ray ledger
+    (EIDOLA_COUNT_RAYS=1) on one more default frame.  Returns rows for
+    the kernels line."""
+    import torch
+
+    from eidola_tpu_torch.ops import bvh_walk
+
+    t_phase = time.perf_counter()
+    base_ms = base["frame_ms"][1]
+    print(f"options: the default standin frame 2 {base_ms:.1f} ms, stages "
+          + json.dumps({k: round(v, 3) for k, v in
+                        base["stage_ms_per_frame"].items()}), flush=True)
+    rows = []
+    for tag, env, reuse, pixels in OPTIONS:
+        label = f"options ({tag}) " + " ".join(f"{k}={v}"
+                                                 for k, v in env.items())
+        watch = SceneWatch(base_loaded if reuse else None)
+        walks = Capture(bvh_walk, WALKS, lambda a: a[2].shape[1], watch.key)
+        alpha_key = ("walk_closest+inst+alpha" if tag == "f"
+                     else "walk_closest+alpha")
+        extra = (ReachWatch(),) if tag == "c" else ()
+        with Environ(env):
+            launches, res = run_phase(
+                label, STANDIN, (1080, 1920, 3), 2, "pallas", [walks],
+                ("walk_closest+inst", "walk_any+inst", alpha_key),
+                DRAINS + MXU, watch=(watch, *extra))
+        check_standin(res)
+        check_calls(label, launches, walks.sizes)
+        scene = res["scene"]
+        alpha = scene.bvh_alpha
+        ms2 = res["frame_ms"][1]
+        print(f"{label}: scene build {res['load_s']:.1f}s"
+              + (" (the default frame's scene, reused)" if reuse else "")
+              + f"; frame 2 {ms2:.1f} ms against the default's {base_ms:.1f}"
+              f" ({100.0 * (ms2 / base_ms - 1.0):+.1f}%); walk launches "
+              + json.dumps({k: launches[k] for k in WALKS}), flush=True)
+        if tag == "s":
+            pid = alpha.prim_id
+            refs = int((pid >= 0).sum())
+            tris = int(torch.unique(pid[pid >= 0]).numel())
+            print(f"{label}: the alpha BVH alone built in "
+                  + ", ".join(f"{t:.1f}" for t in watch.alpha_s)
+                  + f" s; {alpha.walk.shape[0]} nodes (the default's "
+                  f"{base_loaded[0].bvh_alpha.walk.shape[0]}), {refs} "
+                  f"references to {tris} triangles: "
+                  f"{100.0 * (refs / tris - 1.0):.2f}% duplicated", flush=True)
+        if tag == "f":
+            print(f"{label}: the alpha BVH instanced: "
+                  f"{alpha.walk.shape[0]} nodes, a {alpha.leaf_blocks.shape[0]}"
+                  f"-leaf pool under {alpha.inst_inv.shape[0]} instances",
+                  flush=True)
+        if tag == "c":
+            calls, live, culled = extra[0].shares()
+            print(f"{label}: {calls} pre-culls culled {culled} of {live} "
+                  f"live rays ({culled / max(live, 1):.4f})", flush=True)
+        held, ok = _image_held(res, base, pixels)
+        print(f"{label}: against the default frame: {held}", flush=True)
+        if not ok:
+            fail(f"{label}: the image is past the bounds of the default "
+                 f"frame ({held})")
+        if tag in ("s", "f"):
+            alpha_walk_ab(label, walks.args[alpha_key],
+                          base_loaded[0].bvh_alpha)
+            rows.append(("walk_closest", "options (" + tag + ") standin "
+                         "1920x1080 pallas, " + ("SBVH alpha BVH" if tag == "s"
+                                                 else "instanced alpha BVH"),
+                         len(walks.sizes[alpha_key]),
+                         check_walk("walk_closest", walks.args[alpha_key],
+                                    f"largest options ({tag}) alpha-BVH "
+                                    f"traversal")))
+        del res, scene, alpha, walks, watch
+        torch.cuda.empty_cache()
+    # the default frame once more on its scene: how far frame 2 drifts
+    # within the call
+    _, again = run_phase("options: the default frame again", STANDIN,
+                         (1080, 1920, 3), 2, "pallas", [walk_capture()],
+                         ("walk_closest+inst", "walk_any+inst",
+                          "walk_closest"), DRAINS + MXU,
+                         watch=(SceneWatch(base_loaded),))
+    print(f"options: the default frame again: frame 2 "
+          f"{again['frame_ms'][1]:.1f} ms (first run {base_ms:.1f}); "
+          f"against the first run: " + _image_held(again, base)[0],
+          flush=True)
+    del again
+    ledger_frame(base, base_loaded)
+    print(f"options: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return rows
+
+
+def ledger_frame(base, base_loaded) -> None:
+    """The ray ledger (EIDOLA_COUNT_RAYS=1) on the default standin frame,
+    in a run of its own so that its syncs stay out of the timed frames:
+    frame 2's live rays per door, and the Mrays/s they give at the default
+    frame 2's time."""
+    ledger = LedgerWatch()
+    with Environ({"EIDOLA_COUNT_RAYS": "1"}):
+        _, res = run_phase("options: ray ledger", STANDIN, (1080, 1920, 3), 2,
+                           "pallas", [walk_capture()],
+                           ("walk_closest+inst", "walk_any+inst",
+                            "walk_closest"), DRAINS + MXU,
+                           watch=(SceneWatch(base_loaded), ledger))
+    doors = {}
+    for door, n in ledger.frames[-1]:
+        calls, rays = doors.get(door, (0, 0.0))
+        doors[door] = (calls + 1, rays + n)
+    total = sum(r for _, r in doors.values())
+    if total <= 0:
+        fail("options: the ray ledger counted no rays")
+    base_ms = base["frame_ms"][1]
+    print("options: ray ledger, frame 2: " + "; ".join(
+        f"{d} {int(r)} rays in {c} calls" for d, (c, r) in doors.items())
+        + f"; {int(total)} in all, {total / base_ms / 1e3:.3f} Mrays/s at "
+        f"the default frame 2's {base_ms:.1f} ms; the counted frame against"
+        f" the default: " + _image_held(res, base)[0], flush=True)
+
+
+def compaction_check(cap, label) -> None:
+    """The largest torch-walk call of a phase (ops/bvh.closest_hit or
+    any_hit, captured) again under EIDOLA_COMPACT=0 and 1, in turns 0, 1,
+    1, 0 on the same rays: hits and the step and event counts must be
+    bitwise equal; prints the times and the stages (capacity, step it
+    began at)."""
+    import torch
+
+    from eidola_tpu_torch.ops import bvh
+
+    name = max(cap.sizes, key=lambda k: max(cap.sizes[k]))
+    args, kw = cap.args[name]
+    fn = bvh.closest_hit_stats if name == "closest_hit" else bvh.any_hit_stats
+    runs = {}
+    for mode in ("0", "1", "1", "0"):
+        with Environ({"EIDOLA_COMPACT": mode}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec, st = fn(*args, **kw)
+            torch.cuda.synchronize()
+            runs.setdefault(mode, []).append(
+                (rec, st, (time.perf_counter() - t0) * 1e3))
+    (r0, s0, _), (r1, s1, _) = runs["0"][0], runs["1"][0]
+    pairs = zip(r0, r1) if name == "closest_hit" else [(r0, r1)]
+    same = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32
+                           else a, b.view(torch.int32)
+                           if b.dtype == torch.float32 else b)
+               for a, b in pairs)
+    counts = {k: (s0[k], s1[k]) for k in ("events", "steps", "rounds")}
+    if not same or any(a != b for a, b in counts.values()):
+        fail(f"compaction ({label}): the compacted walk differs from the "
+             f"uncompacted one (hits equal {same}, counts {counts})")
+    R = args[1].shape[0]
+    print(f"compaction ({label}): largest torch-walk call {name}, {R} rays "
+          f"({-(-R // 128)} packets); hits bitwise equal, events "
+          f"{s0['events']}, steps {s0['steps']}, rounds {s0['rounds']} "
+          f"equal; live_steps {s0['live_steps']} of "
+          f"{s0['steps'] * (-(-R // 128))} packet-steps; ms uncompacted "
+          + ", ".join(f"{m:.1f}" for *_, m in runs["0"]) + ", compacted "
+          + ", ".join(f"{m:.1f}" for *_, m in runs["1"])
+          + f"; stages (capacity, step it began at) {s1['stages']}",
           flush=True)
 
 
@@ -1556,6 +1984,7 @@ def build_phase() -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "eidola_tpu_torch")):
         fail("run from the root of a checkout: eidola_tpu_torch/ is missing")
     sys.path.insert(0, ROOT)
@@ -1578,8 +2007,13 @@ def main() -> None:
                                [di_cap], DRAINS, WALKS + MXU)
     gi_launches, _ = run_phase("GI (pallas)", GI_ARGS, (1080, 1920, 3), 4,
                                "pallas", [gi_cap], WALKS, DRAINS + MXU)
+    from eidola_tpu_torch.ops import bvh
+
+    tw_cap = Capture(bvh, ("closest_hit", "any_hit"), lambda a: a[1].shape[0])
     run_phase("GI (xla, 960x540)", GI_XLA_ARGS, (540, 960, 3), 2, "xla",
-              [gx_cap], DRAINS, WALKS + MXU)
+              [gx_cap, tw_cap], DRAINS, WALKS + MXU)
+    compaction_check(tw_cap, "GI xla 960x540")
+    del tw_cap
     torch.cuda.empty_cache()
 
     times = {}
@@ -1596,13 +2030,16 @@ def main() -> None:
 
     # the headline frame: every traversal through the walk kernels, the
     # instanced bulk ("+inst") and the flat alpha BVH
-    st_walks = walk_capture()
+    st_walks, st_scene = walk_capture(), SceneWatch()
     st_launches, st = run_phase(
         "standin (pallas)", STANDIN, (1080, 1920, 3), 2, "pallas",
         [st_walks], ("walk_closest+inst", "walk_any+inst", "walk_closest"),
-        DRAINS + MXU)
+        DRAINS + MXU, watch=(st_scene,))
     check_standin(st)
-    del st
+    # the options on the same frame, against it
+    op_rows = options_phase(st, st_scene.loaded)
+    del st, st_scene
+    torch.cuda.empty_cache()
     st_sizes = st_walks.sizes
     check_calls("standin", st_launches, st_sizes)
     # the interactive frame: moving camera, spatiotemporal ReSTIR,
@@ -1733,7 +2170,10 @@ def main() -> None:
             + [(k, "standin DI 1920x1080 xla", sd_launches[k], sd_times[k])
                for k in DRAINS]
             + [(k, "standin DI 1920x1080 mxu", mx_launches[k], times[k])
-               for k in MXU])
+               for k in MXU]
+            + [(k, path, n, t) for k, path, n, t in op_rows])
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"kernels' build included", flush=True)
     line = {"kernels": [
         {"name": k, "path": path, "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][0], "launches": n, **t, "library_ms": None}

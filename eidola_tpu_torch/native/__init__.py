@@ -4,8 +4,8 @@ with ctypes.
 `src/eidola_native.cpp` is compiled with g++ at first use into the
 git-ignored `eidola_tpu_torch/_build/` (utils/cuda_build.Build, named by a
 hash of the source and the flags).  `get_lib()` returns None when no C++
-compiler is available; callers then use the numpy builders, which emit
-the same arrays.
+compiler is available or EIDOLA_NO_NATIVE is set; callers then use the
+numpy builders, which emit the same arrays.
 """
 from __future__ import annotations
 
@@ -52,8 +52,12 @@ def _bind(path: str):
 
 
 def get_lib():
-    """Load (compiling if needed) the native library; None if unavailable."""
+    """Load (compiling if needed) the native library; None if unavailable
+    or when EIDOLA_NO_NATIVE is set (read at each call; the JAX package
+    reads it at its first load), so the numpy builders run."""
     global _lib, _tried
+    if os.environ.get("EIDOLA_NO_NATIVE"):
+        return None
     with _lock:
         if _lib is not None or _tried:
             return _lib

@@ -3,7 +3,7 @@ grafted world-space walk (port of eidola_tpu/ops/bvh_instanced.py; ref
 src/accelstruct.cpp:132-162 TLAS over BLAS).
 
 - Host (`build_instanced_bvh_np`): per unique mesh one binary SAH BVH in
-  object space (`ops/bvh.build_bvh_np`).  For each instance the mesh's
+  object space (`ops/bvh.build_bvh_np`; an SBVH under EIDOLA_SBVH).  For each instance the mesh's
   walk rows are re-emitted with their boxes transformed to world space
   and grafted under a SAH top tree over the instance bounds
   (`build_sah_topology(..., leaf_size=1)`), giving one flat
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.transfer import to_device
+from . import bvh as _bvh
 from .bvh import CULL_K, build_bvh_np, leaf_size_for
 from .bvh_build import build_sah_topology, collect_frontier
 from .bvh_fused import build_leaf_tables_np
@@ -132,10 +133,13 @@ def build_instanced_bvh_np(meshes, instances, leaf_size: int,
     ids in the numbering of the full build."""
     if not meshes or not instances:
         raise ValueError("an instanced BVH needs meshes and instances")
+    # each BLAS follows bvh.SBVH, as the JAX package's build_bvh default
+    # does; an SBVH leaf may repeat a triangle of another leaf, and
+    # mesh_prim / slot_of_tri then name the same triangle from each slot
     blas = [build_bvh_np(v0, v1, v2, leaf_size,
                          None if mesh_prim_ids is None else mesh_prim_ids[k],
                          None if mesh_tris_full is None
-                         else mesh_tris_full[k])
+                         else mesh_tris_full[k], octant=False)
             for k, (v0, v1, v2) in enumerate(meshes)]
     mesh_leaf_base = np.zeros(len(meshes) + 1, np.int64)
     for k, b in enumerate(blas):
@@ -272,7 +276,7 @@ def build_instanced_bvh_np(meshes, instances, leaf_size: int,
         n_tris=np.int32(n_tris_total),
         leaf_cmat=leaf_cmat,
         leaf_anchor=leaf_anchor,
-        walk_oct=build_octant_tables(walk),
+        walk_oct=build_octant_tables(walk) if _bvh.OCT else None,
         slot_of_tri=slot_of_tri,
         inst_of_tri=inst_of_tri,
         cull_boxes=collect_frontier(walk, CULL_K),

@@ -29,6 +29,12 @@ drain kernels, "pallas" the one-kernel walk of ops/bvh_walk.py, which
 takes flat and instanced BVHs alike (the JAX package's kernel reads flat
 leaf rows only and leaves an instanced BVH on its XLA walk,
 packets.py:72-79).
+
+Under EIDOLA_COUNT_RAYS=1 (read at each call) every front door appends
+its live ray count (t_max >= t_min lanes) to `RAY_LEDGER` and its name
+to `RAY_DOORS`, as the JAX package's `_count_rays` does at the same
+doors (packets.py:51-69): one device sum read per door call, so the
+switch costs a sync per traversal and is off by default.
 """
 from __future__ import annotations
 
@@ -48,6 +54,24 @@ TILE_W = 16
 TRAV = os.environ.get("EIDOLA_TRAV", "xla")
 # wavefront sort-key layout (see ray_sort_keys): o21d3 | d3o21 | o15d6
 KEY = os.environ.get("EIDOLA_KEY", "o15d6")
+
+
+# the measured ray ledger (EIDOLA_COUNT_RAYS=1): live rays per door call,
+# and the door that counted them
+RAY_LEDGER: list = []
+RAY_DOORS: list = []
+
+
+def _count_rays(door: str, t_min, t_max, shape) -> None:
+    if os.environ.get("EIDOLA_COUNT_RAYS") != "1":
+        return
+    dev = next((a.device for a in (t_max, t_min) if torch.is_tensor(a)),
+               torch.device("cpu"))
+    f32 = dict(dtype=torch.float32, device=dev)
+    live = (torch.broadcast_to(torch.as_tensor(t_max, **f32), shape)
+            >= torch.broadcast_to(torch.as_tensor(t_min, **f32), shape))
+    RAY_LEDGER.append(float(live.sum()))
+    RAY_DOORS.append(door)
 
 
 def _is_inst(bvh) -> bool:
@@ -93,8 +117,9 @@ def from_tiles(a, h: int, w: int):
     return x.transpose(1, 2).reshape((h, w) + tuple(a.shape[1:]))
 
 
-def _img_args(o, d, t_min, t_max):
+def _img_args(door, o, d, t_min, t_max):
     h, w = o.shape[:2]
+    _count_rays(door, t_min, t_max, (h, w))
     return h, w, [to_tiles(o, h, w), to_tiles(d, h, w),
                   to_tiles(t_min, h, w), to_tiles(t_max, h, w)]
 
@@ -102,14 +127,14 @@ def _img_args(o, d, t_min, t_max):
 def closest_hit_img(bvh: BVH, o, d, t_min, t_max, max_steps: int = 100_000):
     """Closest hit for (H, W, 3) ray fields with tile-packet ordering;
     t_min/t_max are (H, W).  Returns a HitRecord of (H, W) tensors."""
-    h, w, args = _img_args(o, d, t_min, t_max)
+    h, w, args = _img_args("closest_hit_img", o, d, t_min, t_max)
     rec = closest_hit(bvh, *args, max_steps=max_steps)
     return HitRecord(*[from_tiles(a, h, w) for a in rec])
 
 
 def any_hit_img(bvh: BVH, o, d, t_min, t_max, max_steps: int = 100_000):
     """Occlusion query for (H, W, 3) ray fields with tile-packet ordering."""
-    h, w, args = _img_args(o, d, t_min, t_max)
+    h, w, args = _img_args("any_hit_img", o, d, t_min, t_max)
     return from_tiles(any_hit(bvh, *args, max_steps=max_steps), h, w)
 
 
@@ -183,6 +208,7 @@ def make_ray_order(bvh: BVH, o, d, dead):
 def _sorted_traverse(fn, bvh: BVH, o, d, t_min, t_max, max_steps: int,
                      order=None):
     shape = tuple(o.shape[:-1])
+    _count_rays(fn.__name__ + "_sorted", t_min, t_max, shape)
     R = int(o.numel() // 3)
     f32 = dict(dtype=torch.float32, device=o.device)
     o = o.reshape(R, 3)

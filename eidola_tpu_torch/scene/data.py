@@ -8,10 +8,13 @@ builds it, then moved to the device once.  Integer arrays become int64
 tensors (uint32 words keep their value), float arrays f32.  A scene that
 mixes opaque and alpha-tested (MASK/BLEND) materials gets two BVHs, the
 opaque bulk in `bvh` and the alpha-tested rest in `bvh_alpha`, both
-reporting triangle ids in one numbering.
+reporting triangle ids in one numbering.  On an instanced scene the
+alpha half is a flat world-space BVH, or an instanced one under
+EIDOLA_ALPHA_FLAT=0; EIDOLA_ALPHA_LEAF sets its leaf size.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -563,11 +566,16 @@ def upload_scene_instanced(meshes: list[dict], instances, *, device,
     all_alpha = all(m.all() for m in mesh_alpha)
     n_virtual = int(tri_base[-1]) + mesh_tris_full[mesh_of[-1]] if I else 0
 
-    def opaque_bvh():
-        """Instanced BVH over each mesh's opaque triangles."""
+    def alpha_leaf():
+        """EIDOLA_ALPHA_LEAF: the alpha half's leaf size, else the scene's."""
+        leaf = os.environ.get("EIDOLA_ALPHA_LEAF")
+        return int(leaf) if leaf else leaf_size
+
+    def subset_bvh(want_alpha: bool):
+        """Instanced BVH over each mesh's opaque (or alpha) triangles."""
         sel_meshes, sel_ids, sel_full, remap = [], [], [], {}
         for k, mask in enumerate(mesh_alpha):
-            keep = ~mask
+            keep = mask if want_alpha else ~mask
             if not keep.any():
                 continue
             idx = np.nonzero(keep)[0].astype(np.int32)
@@ -582,7 +590,8 @@ def upload_scene_instanced(meshes: list[dict], instances, *, device,
                 sel_inst.append((remap[mi], m))
                 sel_base.append(int(tri_base[i]))
         return build_instanced_bvh(
-            sel_meshes, sel_inst, device=device, leaf_size=leaf_size,
+            sel_meshes, sel_inst, device=device,
+            leaf_size=alpha_leaf() if want_alpha else leaf_size,
             mesh_prim_ids=sel_ids, mesh_tris_full=sel_full,
             inst_tri_base_override=np.asarray(sel_base, np.int64),
             n_tris_virtual=n_virtual)
@@ -605,12 +614,15 @@ def upload_scene_instanced(meshes: list[dict], instances, *, device,
             ids.append((idx + int(tri_base[i])).astype(np.int32))
         return build_bvh(np.concatenate(v0w), np.concatenate(v1w),
                          np.concatenate(v2w), device=device,
-                         leaf_size=leaf_size, prim_ids=np.concatenate(ids),
+                         leaf_size=alpha_leaf(), prim_ids=np.concatenate(ids),
                          n_tris_global=n_virtual)
 
+    # EIDOLA_ALPHA_FLAT=0 builds the alpha half instanced, as the opaque
+    # one (eidola_tpu/scene/data.py:750-756)
+    alpha_flat = os.environ.get("EIDOLA_ALPHA_FLAT", "1") == "1"
     if any_alpha and not all_alpha:
-        bvh = opaque_bvh()
-        bvh_alpha = flat_alpha_bvh()
+        bvh = subset_bvh(False)
+        bvh_alpha = flat_alpha_bvh() if alpha_flat else subset_bvh(True)
     else:
         bvh = build_instanced_bvh(mesh_v, instances, device=device,
                                   leaf_size=leaf_size)
