@@ -3,8 +3,13 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout, on a machine with a CUDA device.  It
-imports nothing of JAX and nothing of the JAX package, and in order:
+Run from the root of a checkout, on a machine with a CUDA device, with
+no EIDOLA_* variable set.  It imports nothing of JAX and nothing of the
+JAX package.  On the card every traversal takes the one-kernel walk by
+default (ops/packets.resolve_trav), so the phases that show the default
+path set no traversal, and only the DI, GI-xla, standin DI and mxu
+phases set EIDOLA_TRAV=xla (packets.TRAV) for the torch walk and its
+drains.  In order:
 
 1. prints the card's name and power limit (nvidia-smi) and the torch and
    CUDA versions;
@@ -14,23 +19,30 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    and prints each kernel's registers, spills and shared memory as
    ptxas reports them;
 3. DI phase: 2 frames of bistro_flat at 1920x1080 through the headless
-   entry point with --no-denoise --no-indirect (the default traversal:
-   torch walk + the fused drain kernels);
+   entry point with --no-denoise --no-indirect under EIDOLA_TRAV=xla
+   (torch walk + the fused drain kernels);
 4. GI phase: the default frame (ReSTIR DI + GI, a-trous denoise) on
-   bistro_flat at 1920x1080, 4 frames, with EIDOLA_TRAV=pallas: every
-   ray goes through the one-kernel walk; prints ms/frame over frames 2-4
-   and the stage split;
-5. GI-xla phase: the same default frame under the default traversal at
-   960x540, 2 frames, so the drain kernels run on sorted GI rays; the
+   bistro_flat at 1920x1080, 4 frames, no switch set: every ray goes
+   through the one-kernel walk; prints ms/frame over frames 2-4 and the
+   stage split;
+5. GI-xla phase: the same default frame under EIDOLA_TRAV=xla at
+   960x540, 1 frame, so the drain kernels run on sorted GI rays; the
    torch walk's largest call runs again under EIDOLA_COMPACT=0 and 1
    (staged live-packet compaction) in turns on the same rays: hits,
    steps and leaf events bitwise equal, with the times and the stages;
 6. standin phase: the JAX bench's headline frame, bistro_standin (2.89M
    instanced triangles, textures, alpha-MASK foliage split into a flat
    BVH) at 1920x1080 with the default RenderConfig and the alpha HitTest
-   on (set by the app from the scene), EIDOLA_TRAV=pallas, 2 frames:
-   the walk kernels trace the instanced opaque bulk (closest and any
-   hit) and the flat alpha BVH, and no drain kernel runs;
+   on (set by the app from the scene), no switch set, 2 frames: the
+   walk kernels trace the instanced opaque bulk (closest and any hit)
+   and the flat alpha BVH, and no drain kernel runs; prints the app's
+   own readout (the MilliTimer load line and the Profiler's
+   "Compile+first" and "Render" rows; fails without "Render") and the
+   scene upload: the SceneData host tree onto the card through
+   batched_device_put and through to_device, in turns, 3 each, with the
+   host-to-device copies and ms of each (bitwise equal, every batched
+   leaf at a 256-byte offset, at most one copy per dtype), and the
+   pinned host memory torch's caching allocator holds after the load;
 7. options phase: the same frame under each of the JAX package's build
    and trace options, the switch in the environment: (s) EIDOLA_SBVH=1,
    (f) EIDOLA_ALPHA_FLAT=0, (c) EIDOLA_ALPHA_CULL=1, (d)
@@ -45,8 +57,8 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    walk_ref, (c) the share of rays culled; then one more standin frame
    under EIDOLA_COUNT_RAYS=1: the live rays per front door and the
    Mrays/s they give at the standin frame's time;
-8. interactive phase: bistro_standin at 1920x1080 under
-   EIDOLA_TRAV=pallas, 4 frames, with --orbit 0.01 --restir
+8. interactive phase: bistro_standin at 1920x1080, no switch set, 4
+   frames, with --orbit 0.01 --restir
    spatiotemporal --shadow-cadence 4 --primary-seed: the camera moves
    every frame, so after every frame the accumulation count is 1 and on
    frames 2-4 the motion vectors are not the identity; both walk kernels
@@ -59,7 +71,7 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    material, one node per instance, PNG textures, alpha-MASK leaf cards,
    the scene's camera) and a 2048x1024 equirect .hdr (a sun-like hot
    spot over a sky gradient, from a fixed seed), then the headless app
-   on them at 1920x1080 under EIDOLA_TRAV=pallas: `--scene standin.glb
+   on them at 1920x1080, no switch set: `--scene standin.glb
    -e env.hdr --frames 3 --save-state s.npz --out f.png`, then
    `--load-state s.npz --frames 2`; checks that the scene is instanced
    with the alpha HitTest on and >= 2.8M triangles, the env is the .hdr
@@ -69,7 +81,7 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    1080x1920 RGB;
 10. viewer phase: the port's viewer in this process (app/viewer.start:
    its render and worker threads, the HTTP server on 127.0.0.1:0) on
-   cornell at 1920x1080 under EIDOLA_TRAV=pallas; after a few frames
+   cornell at 1920x1080, no switch set; after a few frames
    POST /scene drops in the GLB and the .hdr; /stats is polled until it
    names the GLB with `busy` empty (a `busy` of "load failed",
    "compile failed" or "render failed" fails the phase, as does a time
@@ -82,14 +94,16 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    times and counts, the PNG encode, the GLB's load on the worker, the
    warm-up frames, the fps, the walk launches and the device monitor;
 11. standin DI phase: bistro_standin at 1920x1080 with --no-denoise
-   --no-indirect under the default traversal, 2 frames: the instanced
+   --no-indirect under EIDOLA_TRAV=xla, 1 frame: the instanced
    torch walk with the fused drains on object-space rays;
-12. mxu phase: the same DI frame under EIDOLA_MT=mxu, 2 frames: every
+12. mxu phase: the same DI frame under EIDOLA_TRAV=xla and
+   EIDOLA_MT=mxu, 1 frame: every
    closest-hit drain goes through mt_mxu, and neither the fused drains
    nor the walk kernels run;
 13. multidevice phase, the row-sharded frame (parallel/sharding.py) on
    bistro_standin at 1920 wide, the default RenderConfig with the HitTest,
-   EIDOLA_TRAV=pallas: (a) one process at 1920x1088 (padded_height(1080,
+   no switch set (the spawned ranks of (c) take the walk kernel by
+   default too): (a) one process at 1920x1088 (padded_height(1080,
    8)) under band_context(8) against the same 2 frames unbanded, with the
    walk launches of each; (b) the sharded step at world size = the card
    count over NCCL (one rank in this process on a one-card machine) at
@@ -146,13 +160,16 @@ imports nothing of JAX and nothing of the JAX package, and in order:
    phase's SBVH and instanced alpha walks): that phase's launches and
    the kernel's error, times (`ms` the wrapper call, `kernel_ms` the
    kernel alone) and bound on the phase's largest call, after a line
-   with the script's seconds in all;
+   with the seconds of each phase and one with the script's seconds in
+   all;
    then, last, {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero before the last line.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -165,10 +182,10 @@ BISTRO = ["--scene", "bistro_flat", "--device", "cuda", "--quiet"]
 DI_ARGS = BISTRO + ["--size", "1920", "1080", "--frames", "2",
                     "--no-denoise", "--no-indirect"]
 GI_ARGS = BISTRO + ["--size", "1920", "1080", "--frames", "4"]
-GI_XLA_ARGS = BISTRO + ["--size", "960", "540", "--frames", "2"]
+GI_XLA_ARGS = BISTRO + ["--size", "960", "540", "--frames", "1"]
 STANDIN = ["--scene", "bistro_standin", "--quiet", "--size", "1920", "1080",
            "--frames", "2"]
-STANDIN_DI = STANDIN + ["--no-denoise", "--no-indirect"]
+STANDIN_DI = STANDIN + ["--no-denoise", "--no-indirect", "--frames", "1"]
 INTERACTIVE = ["--scene", "bistro_standin", "--quiet", "--size", "1920",
                "1080", "--frames", "4", "--orbit", "0.01", "--restir",
                "spatiotemporal", "--shadow-cadence", "4", "--primary-seed"]
@@ -209,6 +226,18 @@ MT_EPI_OPS = 10
 # step against the single-device one (tests/test_parallel.py:45-46)
 MD_FRAMES_A, MD_FRAMES, MD_RANKS_S, MD_PROBE_SEEDS = 2, 3, 300.0, 8
 MD_MAX, MD_MEAN = 5e-2, 2e-3
+
+
+class Laps:
+    """Seconds of each phase: `lap(name)` closes the phase `name`."""
+
+    def __init__(self):
+        self.seconds, self.t = {}, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
 
 
 def fail(msg: str) -> None:
@@ -392,11 +421,13 @@ def check_frame(res, shape, frames, label, accum=None) -> None:
 
 
 def run_phase(label, argv, shape, frames, trav, captures, used, unused,
-              mt="fused", accum=None, watch=()):
+              mt=None, accum=None, watch=()):
     """One main-path run through the headless entry point, its launch
-    counts set to 0 just before and read just after; `captures` keep the
-    arguments of each watched kernel's largest call; `watch`: other
-    context managers active during the run."""
+    counts set to 0 just before and read just after; `trav` / `mt` set
+    the traversal and the drain for the run (None: leave the default) and
+    are restored to what they were; `captures` keep the arguments of each
+    watched kernel's largest call; `watch`: other context managers active
+    during the run."""
     import contextlib
 
     import torch
@@ -404,7 +435,8 @@ def run_phase(label, argv, shape, frames, trav, captures, used, unused,
     from eidola_tpu_torch.app import headless
     from eidola_tpu_torch.ops import bvh, packets
 
-    packets.TRAV, bvh.MT = trav, mt
+    found = packets.TRAV, bvh.MT
+    packets.TRAV, bvh.MT = trav or found[0], mt or found[1]
     try:
         with contextlib.ExitStack() as stack:
             for cap in (*watch, *captures):
@@ -414,7 +446,7 @@ def run_phase(label, argv, shape, frames, trav, captures, used, unused,
             torch.cuda.synchronize()
             launches = _launches()
     finally:
-        packets.TRAV, bvh.MT = "xla", "fused"
+        packets.TRAV, bvh.MT = found
     check_frame(res, shape, frames, label, accum)
     args = {k: v for cap in captures for k, v in cap.args.items()}
     for name in used:
@@ -424,8 +456,8 @@ def run_phase(label, argv, shape, frames, trav, captures, used, unused,
         if launches[name] != 0:
             fail(f"{label}: {name} was launched {launches[name]} times on "
                  f"a path that must not use it")
-    print(f"{label}: {res['ms_per_frame']:.1f} ms/frame over frames 2-"
-          f"{frames} (frames " + ", ".join(f"{m:.1f}" for m in
+    print(f"{label}: {res['ms_per_frame']:.1f} ms/frame over frames "
+          f"{min(2, frames)}-{frames} (frames " + ", ".join(f"{m:.1f}" for m in
                                             res["frame_ms"])
           + " ms); stages " + json.dumps(
               {k: round(v, 3) for k, v in res["stage_ms_per_frame"].items()})
@@ -433,7 +465,8 @@ def run_phase(label, argv, shape, frames, trav, captures, used, unused,
           + json.dumps({k: launches[k] for k in
                         dict.fromkeys(n.split("+")[0] for n in used)})
           + f"; scene+BVH {res['load_s']:.1f}s; {res['n_tris']} triangles, "
-          f"alpha_geometry {res['alpha_geometry']}", flush=True)
+          f"alpha_geometry {res['alpha_geometry']}, trav {res['trav']}",
+          flush=True)
     for cap in captures:
         for name, sizes in cap.sizes.items():
             print(f"{label}: {name} calls (size): {sizes}", flush=True)
@@ -540,11 +573,11 @@ def seed_effect(call, label) -> None:
 
 class SceneWatch:
     """While active, headless.load_scene returns `reuse` (a loaded (scene,
-    camera)) when one is given, else loads as usual and times each build
-    of a flat alpha BVH (scene/data.build_bvh, which an instanced scene
-    calls for that alone); either way it keeps what it returned in
-    `loaded` and the alpha BVH's walk table, so that `key` can give that
-    BVH's walk calls the suffix "+alpha"."""
+    camera)) when one is given, else loads as usual and times each host
+    build of a flat alpha BVH (scene/data.build_bvh_np, which an
+    instanced scene calls for that alone); either way it keeps what it
+    returned in `loaded` and the alpha BVH's walk table, so that `key` can
+    give that BVH's walk calls the suffix "+alpha"."""
 
     def __init__(self, reuse=None):
         self.reuse, self.loaded = reuse, None
@@ -554,7 +587,7 @@ class SceneWatch:
         from eidola_tpu_torch.app import headless
         from eidola_tpu_torch.scene import data
 
-        self.orig = headless.load_scene, data.build_bvh
+        self.orig = headless.load_scene, data.build_bvh_np
 
         def load(name, *, device):
             self.loaded = self.reuse or self.orig[0](name, device=device)
@@ -568,14 +601,14 @@ class SceneWatch:
             self.alpha_s.append(time.perf_counter() - t0)
             return out
 
-        headless.load_scene, data.build_bvh = load, build
+        headless.load_scene, data.build_bvh_np = load, build
         return self
 
     def __exit__(self, *exc):
         from eidola_tpu_torch.app import headless
         from eidola_tpu_torch.scene import data
 
-        headless.load_scene, data.build_bvh = self.orig
+        headless.load_scene, data.build_bvh_np = self.orig
 
     def key(self, name, args, kw):
         key = name + ("+inst" if kw.get("inst") is not None else "")
@@ -779,9 +812,10 @@ OPTIONS = (   # tag, environment, reuses the default scene, and the
 def options_phase(base, base_loaded):
     """The JAX package's build and trace options on the standin frame
     (bistro_standin 1920x1080, default RenderConfig with the HitTest,
-    pallas, 2 frames each through the headless entry point, the switch set
-    in the environment): (s) EIDOLA_SBVH=1, (f) EIDOLA_ALPHA_FLAT=0, (c)
-    EIDOLA_ALPHA_CULL=1, (d) EIDOLA_DI_SHADOW=sorted; (c) and (d) reuse
+    the default traversal, 2 frames each through the headless entry
+    point, the switch set in the environment): (s) EIDOLA_SBVH=1, (f)
+    EIDOLA_ALPHA_FLAT=0, (c) EIDOLA_ALPHA_CULL=1, (d)
+    EIDOLA_DI_SHADOW=sorted; (c) and (d) reuse
     the default frame's scene (`base_loaded`).  Each against `base`, the
     default standin frame of this call: frame 2's time and stages, the
     image (bound: the sharded frame's), the primary hits, the walk
@@ -810,7 +844,7 @@ def options_phase(base, base_loaded):
         extra = (ReachWatch(),) if tag == "c" else ()
         with Environ(env):
             launches, res = run_phase(
-                label, STANDIN, (1080, 1920, 3), 2, "pallas", [walks],
+                label, STANDIN, (1080, 1920, 3), 2, None, [walks],
                 ("walk_closest+inst", "walk_any+inst", alpha_key),
                 DRAINS + MXU, watch=(watch, *extra))
         check_standin(res)
@@ -851,7 +885,8 @@ def options_phase(base, base_loaded):
             alpha_walk_ab(label, walks.args[alpha_key],
                           base_loaded[0].bvh_alpha)
             rows.append(("walk_closest", "options (" + tag + ") standin "
-                         "1920x1080 pallas, " + ("SBVH alpha BVH" if tag == "s"
+                         "1920x1080 default traversal, "
+                         + ("SBVH alpha BVH" if tag == "s"
                                                  else "instanced alpha BVH"),
                          len(walks.sizes[alpha_key]),
                          check_walk("walk_closest", walks.args[alpha_key],
@@ -862,7 +897,7 @@ def options_phase(base, base_loaded):
     # the default frame once more on its scene: how far frame 2 drifts
     # within the call
     _, again = run_phase("options: the default frame again", STANDIN,
-                         (1080, 1920, 3), 2, "pallas", [walk_capture()],
+                         (1080, 1920, 3), 2, None, [walk_capture()],
                          ("walk_closest+inst", "walk_any+inst",
                           "walk_closest"), DRAINS + MXU,
                          watch=(SceneWatch(base_loaded),))
@@ -884,7 +919,7 @@ def ledger_frame(base, base_loaded) -> None:
     ledger = LedgerWatch()
     with Environ({"EIDOLA_COUNT_RAYS": "1"}):
         _, res = run_phase("options: ray ledger", STANDIN, (1080, 1920, 3), 2,
-                           "pallas", [walk_capture()],
+                           None, [walk_capture()],
                            ("walk_closest+inst", "walk_any+inst",
                             "walk_closest"), DRAINS + MXU,
                            watch=(SceneWatch(base_loaded), ledger))
@@ -989,9 +1024,9 @@ def gltf_phase(glb: str, hdr: str, tmp: str):
     args = ["--scene", glb, "-e", hdr] + GLTF
     walks = walk_capture()
     launches, res = run_phase(
-        "gltf (pallas)", args + ["--frames", "3", "--save-state", ckpt,
-                                 "--out", png],
-        (1080, 1920, 3), 3, "pallas", [walks],
+        "gltf", args + ["--frames", "3", "--save-state", ckpt,
+                        "--out", png],
+        (1080, 1920, 3), 3, None, [walks],
         ("walk_closest+inst", "walk_any+inst", "walk_closest"), DRAINS + MXU)
     check_standin(res)
     scene = res["scene"]
@@ -1013,9 +1048,9 @@ def gltf_phase(glb: str, hdr: str, tmp: str):
     del res, scene
     again = walk_capture()
     _, res = run_phase(
-        "gltf (pallas, --load-state)", args + ["--frames", "2",
-                                               "--load-state", ckpt],
-        (1080, 1920, 3), 2, "pallas", [again],
+        "gltf (--load-state)", args + ["--frames", "2",
+                                       "--load-state", ckpt],
+        (1080, 1920, 3), 2, None, [again],
         ("walk_closest+inst", "walk_any+inst", "walk_closest"), DRAINS + MXU,
         accum=5)
     if res["frame_idx"] != 5:
@@ -1125,36 +1160,31 @@ def viewer_phase(glb: str, hdr: str, headless_ms: float):
     import torch
 
     from eidola_tpu_torch.app import viewer as V
-    from eidola_tpu_torch.ops import packets
 
-    packets.TRAV = "pallas"
     walks, watch = walk_capture(), ViewerWatch()
     report = {}
-    try:
-        with walks, watch:
-            _reset_launches()
-            vs, srv, threads = V.start(["--scene", "cornell", "--size",
-                                        "1920", "1080", "--max-depth", "4",
-                                        "--device", "cuda", "--port", "0"])
-            watch.render_thread = threads[0]
-            threads.append(threading.Thread(target=srv.serve_forever,
-                                            daemon=True))
-            threads[-1].start()
-            try:
-                report = viewer_steps(ViewerClient(vs, srv.server_address[1]),
-                                      watch, glb, hdr)
-            finally:
-                vs.stop = True
-                srv.shutdown()
-                srv.server_close()
-                for t in threads:
-                    t.join(timeout=120)
-            if any(t.is_alive() for t in threads):
-                fail("viewer: a thread did not stop")
-            torch.cuda.synchronize()
-            launches = _launches()
-    finally:
-        packets.TRAV = "xla"
+    with walks, watch:
+        _reset_launches()
+        vs, srv, threads = V.start(["--scene", "cornell", "--size", "1920",
+                                    "1080", "--max-depth", "4", "--device",
+                                    "cuda", "--port", "0"])
+        watch.render_thread = threads[0]
+        threads.append(threading.Thread(target=srv.serve_forever,
+                                        daemon=True))
+        threads[-1].start()
+        try:
+            report = viewer_steps(ViewerClient(vs, srv.server_address[1]),
+                                  watch, glb, hdr)
+        finally:
+            vs.stop = True
+            srv.shutdown()
+            srv.server_close()
+            for t in threads:
+                t.join(timeout=120)
+        if any(t.is_alive() for t in threads):
+            fail("viewer: a thread did not stop")
+        torch.cuda.synchronize()
+        launches = _launches()
     sv = report["serving"]
     full, prev = sv["full"], sv["preview"]
     print(f"viewer: the GLB loaded on the worker in {vs.load_s:.2f}s, "
@@ -1184,7 +1214,8 @@ def viewer_phase(glb: str, hdr: str, headless_ms: float):
         if launches[name] <= 0 or name + "+inst" not in walks.args:
             fail(f"viewer: {name} was never launched on the instanced BVH")
     if max(launches[k] for k in DRAINS + MXU) != 0:
-        fail(f"viewer: a drain kernel ran under pallas ({launches})")
+        fail(f"viewer: a drain kernel ran under the default traversal "
+             f"({launches})")
     check_calls("viewer", launches, walks.sizes)
     return walks
 
@@ -1593,28 +1624,24 @@ def synthetic_phase(dev) -> None:
 
 
 def single_frames(scene, cam, cfg, frames: int):
-    """The single-process frames of `cfg` under pallas: (numpy images, ms
-    per frame on a synchronised host clock, the last carried state)."""
+    """The single-process frames of `cfg` under the default traversal:
+    (numpy images, ms per frame on a synchronised host clock, the last
+    carried state)."""
     import torch
 
-    from eidola_tpu_torch.ops import packets
     from eidola_tpu_torch.render.config import default_params, default_tonemap
     from eidola_tpu_torch.render.frame import init_frame_state, make_step
 
     dev = cam.pos.device
     params, tm = default_params(device=dev), default_tonemap(device=dev)
     state, step, out, ms = init_frame_state(cfg, cam), make_step(cfg), [], []
-    packets.TRAV = "pallas"
-    try:
-        for _ in range(frames):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, o = step(scene, cam, params, tm, state)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            out.append(o["image"].cpu().numpy())
-    finally:
-        packets.TRAV = "xla"
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, o = step(scene, cam, params, tm, state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(o["image"].cpu().numpy())
     return out, ms, state
 
 
@@ -1663,7 +1690,8 @@ def _rank_lines(label, ranks) -> None:
             fail(f"{label}: a walk kernel was not launched on rank "
                  f"{r['rank']} ({walks})")
         if max(r["launches"][k] for k in DRAINS + MXU) != 0:
-            fail(f"{label}: a drain ran on rank {r['rank']} under pallas")
+            fail(f"{label}: a drain ran on rank {r['rank']} under the "
+                 f"default traversal")
 
 
 def _brute_instanced(bvh, o, d) -> str:
@@ -1731,79 +1759,76 @@ def band_packets_probe(scene, cam, cfg) -> None:
     h, w, n = cfg.height, cfg.width, cfg.height // 2
     full = lambda rows, v: torch.full((rows, w), v, device="cuda")
     tris = scene.bvh_alpha.leaf_blocks.reshape(-1, 12)
-    packets.TRAV = "pallas"
-    try:
-        differ, ties = 0, []   # (seed, row, column, t whole, t band)
+    differ, ties = 0, []   # (seed, row, column, t whole, t band)
+    for salt in range(MD_PROBE_SEEDS):
+        rng, o, d = spawn_rays(cam, h, w, erng.seed_pixels(
+            h, w, salt, device="cuda"))
+        whole = trace_closest(cfg, scene, o, d, full(h, 1e-4),
+                              full(h, 1e8), rng, coherent=True)[1]
+        for b in (slice(0, n), slice(n, h)):
+            band = trace_closest(cfg, scene, o[b], d[b], full(n, 1e-4),
+                                 full(n, 1e8), rng[b], coherent=True)[1]
+            other = torch.nonzero(whole.tri[b] != band.tri)
+            differ += other.shape[0]
+            ties += [(salt, b.start + y, x, float(whole.t[b][y, x]),
+                      float(band.t[y, x])) for y, x in other.tolist()]
+    lines = []
+    for salt, y, x, t_whole, t_band in ties[:4]:
+        _, o, d = spawn_rays(cam, h, w, erng.seed_pixels(
+            h, w, salt, device="cuda"))
+        ray = lambda a: a[y, x].expand(tris.shape[0], 3)
+        _, t, _, _ = ray_triangle(ray(o), ray(d), tris[:, 0:3],
+                                  tris[:, 3:6], tris[:, 6:9], 1e-4, 1e8)
+        t2 = torch.topk(t, 2, largest=False).values.tolist()
+        one = lambda v: torch.full((1,), v, device="cuda")
+        alone = packets.closest_hit(scene.bvh, o[y, x][None],
+                                    d[y, x][None], one(1e-4), one(1e8))
+        brute = _brute_instanced(scene.bvh, o[y, x], d[y, x])
+        lines.append(f"seed {salt} ray ({y}, {x}): depth {t_whole:.4f}"
+                     f" / {t_band:.4f}, nearest alpha t {t2[0]:.7g}, "
+                     f"{t2[1]:.7g}; the opaque walk of the ray alone "
+                     f"{float(alone.t[0]):.4f}, every opaque triangle "
+                     f"tested: {brute}")
+    print(f"multidevice: band probe, HitTest primary of each {n}-row "
+          f"band alone vs in the whole image, {MD_PROBE_SEEDS} seeds: "
+          f"hits differ on {differ} of {MD_PROBE_SEEDS * h * w} rays; "
+          + ("; ".join(lines) or "none"), flush=True)
+    for cap in (cfg.traversal_max_steps, 1 << 24):
+        differ, at_cap = 0, [0, 0]
         for salt in range(MD_PROBE_SEEDS):
-            rng, o, d = spawn_rays(cam, h, w, erng.seed_pixels(
-                h, w, salt, device="cuda"))
-            whole = trace_closest(cfg, scene, o, d, full(h, 1e-4),
-                                  full(h, 1e8), rng, coherent=True)[1]
-            for b in (slice(0, n), slice(n, h)):
-                band = trace_closest(cfg, scene, o[b], d[b], full(n, 1e-4),
-                                     full(n, 1e8), rng[b], coherent=True)[1]
-                other = torch.nonzero(whole.tri[b] != band.tri)
-                differ += other.shape[0]
-                ties += [(salt, b.start + y, x, float(whole.t[b][y, x]),
-                          float(band.t[y, x])) for y, x in other.tolist()]
-        lines = []
-        for salt, y, x, t_whole, t_band in ties[:4]:
             _, o, d = spawn_rays(cam, h, w, erng.seed_pixels(
                 h, w, salt, device="cuda"))
-            ray = lambda a: a[y, x].expand(tris.shape[0], 3)
-            _, t, _, _ = ray_triangle(ray(o), ray(d), tris[:, 0:3],
-                                      tris[:, 3:6], tris[:, 6:9], 1e-4, 1e8)
-            t2 = torch.topk(t, 2, largest=False).values.tolist()
-            one = lambda v: torch.full((1,), v, device="cuda")
-            alone = packets.closest_hit(scene.bvh, o[y, x][None],
-                                        d[y, x][None], one(1e-4), one(1e8))
-            brute = _brute_instanced(scene.bvh, o[y, x], d[y, x])
-            lines.append(f"seed {salt} ray ({y}, {x}): depth {t_whole:.4f}"
-                         f" / {t_band:.4f}, nearest alpha t {t2[0]:.7g}, "
-                         f"{t2[1]:.7g}; the opaque walk of the ray alone "
-                         f"{float(alone.t[0]):.4f}, every opaque triangle "
-                         f"tested: {brute}")
-        print(f"multidevice: band probe, HitTest primary of each {n}-row "
-              f"band alone vs in the whole image, {MD_PROBE_SEEDS} seeds: "
-              f"hits differ on {differ} of {MD_PROBE_SEEDS * h * w} rays; "
-              + ("; ".join(lines) or "none"), flush=True)
-        for cap in (cfg.traversal_max_steps, 1 << 24):
-            differ, at_cap = 0, [0, 0]
-            for salt in range(MD_PROBE_SEEDS):
-                _, o, d = spawn_rays(cam, h, w, erng.seed_pixels(
-                    h, w, salt, device="cuda"))
-                for k, b in enumerate((slice(0, h), slice(0, n),
-                                       slice(n, h))):
-                    with walk_capture() as calls:
-                        rec = packets.closest_hit_img(
-                            scene.bvh, o[b], d[b], full(b.stop - b.start,
-                                                        1e-4),
-                            full(b.stop - b.start, 1e8), max_steps=cap)
-                    (walk, leaf, rays, steps), kw = calls.args[
-                        "walk_closest+inst"]
-                    stats = torch.zeros((rays.shape[1], 2),
-                                        dtype=torch.int32, device="cuda")
-                    W.walk_closest(walk, leaf, rays, steps, stats=stats,
-                                   inst=kw["inst"])
-                    at_cap[min(k, 1)] += int((stats[:, 0] >= cap).sum())
-                    if k == 0:
-                        whole = rec
-                    else:
-                        differ += int((whole.tri[b] != rec.tri).sum())
-            print(f"multidevice: band probe, opaque instanced primary walk, "
-                  f"step cap {cap}, {MD_PROBE_SEEDS} seeds: each band's "
-                  f"scanline packets against the whole image's 8x16 tiles:"
-                  f" hits differ on {differ} rays; packets at the cap: "
-                  f"{at_cap[0]} of the tiles', {at_cap[1]} of the bands'",
-                  flush=True)
-    finally:
-        packets.TRAV = "xla"
+            for k, b in enumerate((slice(0, h), slice(0, n),
+                                   slice(n, h))):
+                with walk_capture() as calls:
+                    rec = packets.closest_hit_img(
+                        scene.bvh, o[b], d[b], full(b.stop - b.start,
+                                                    1e-4),
+                        full(b.stop - b.start, 1e8), max_steps=cap)
+                (walk, leaf, rays, steps), kw = calls.args[
+                    "walk_closest+inst"]
+                stats = torch.zeros((rays.shape[1], 2),
+                                    dtype=torch.int32, device="cuda")
+                W.walk_closest(walk, leaf, rays, steps, stats=stats,
+                               inst=kw["inst"])
+                at_cap[min(k, 1)] += int((stats[:, 0] >= cap).sum())
+                if k == 0:
+                    whole = rec
+                else:
+                    differ += int((whole.tri[b] != rec.tri).sum())
+        print(f"multidevice: band probe, opaque instanced primary walk, "
+              f"step cap {cap}, {MD_PROBE_SEEDS} seeds: each band's "
+              f"scanline packets against the whole image's 8x16 tiles:"
+              f" hits differ on {differ} rays; packets at the cap: "
+              f"{at_cap[0]} of the tiles', {at_cap[1]} of the bands'",
+              flush=True)
 
 
 def multidevice_phase():
     """The row-sharded frame (parallel/sharding.py) on bistro_standin at
     the headline frame's width, the default RenderConfig with the HitTest,
-    pallas: (a) the single-process banded layout at 1920x1088 under
+    the default traversal (no switch set, in this process and in the
+    spawned ranks): (a) the single-process banded layout at 1920x1088 under
     band_context(8) against the same frames unbanded; (b) the sharded step
     at world size = the card count over NCCL at 1920x1080 (one rank per
     card; in this process when there is one card), its walks captured;
@@ -1858,7 +1883,7 @@ def multidevice_phase():
     print("multidevice: the single-process 1920x1080 frames, ms/frame "
           + ", ".join(f"{m:.1f}" for m in ref_ms), flush=True)
     job = dict(scene="bistro_standin", cfg=cfg, frames=MD_FRAMES,
-               device="cuda", trav="pallas", gbuf=True)
+               device="cuda", gbuf=True)
     # (b) world size = card count over NCCL
     world = torch.cuda.device_count()
     walks = walk_capture()
@@ -1903,42 +1928,37 @@ def golden_phase() -> None:
     import torch
 
     from eidola_tpu_torch.models.scenes import load_scene
-    from eidola_tpu_torch.ops import packets
     from eidola_tpu_torch.render.config import (RenderConfig, default_params,
                                                 default_tonemap)
     from eidola_tpu_torch.render.frame import init_frame_state, make_step
 
     dev = torch.device("cuda")
-    packets.TRAV = "pallas"
-    try:
-        for key, env_mode in GOLDENS.items():
-            cfg = RenderConfig(width=64, height=64, max_depth=2,
-                               traversal_max_steps=1024, env_mode=env_mode,
-                               alpha_geometry=key == "alpha")
-            scene, cam = load_scene(key, device=dev)
-            params = default_params(device=dev)
-            tm = default_tonemap(device=dev)
-            state = init_frame_state(cfg, cam)
-            step = make_step(cfg)
-            _reset_launches()
-            for _ in range(4):
-                state, out = step(scene, cam, params, tm, state)
-            launches = _launches()
-            img = out["hdr"].cpu().numpy()
-            ref = np.load(os.path.join(ROOT, "tests", "golden",
-                                       f"{key}_64_d2_f4.npy"))
-            err = float(np.abs(img - ref).mean()) if img.shape == ref.shape \
-                else float("inf")
-            print(f"golden {key}: mean abs err {err:.6f} (bound 0.02); "
-                  f"launches {json.dumps(launches)}", flush=True)
-            if not err < 0.02:
-                fail(f"golden {key}: mean abs err {err} >= 0.02")
-            if min(launches[k] for k in WALKS) <= 0 or \
-                    max(launches[k] for k in DRAINS + MXU) != 0:
-                fail(f"golden {key}: not traced through the walk kernel "
-                     f"({launches})")
-    finally:
-        packets.TRAV = "xla"
+    for key, env_mode in GOLDENS.items():
+        cfg = RenderConfig(width=64, height=64, max_depth=2,
+                           traversal_max_steps=1024, env_mode=env_mode,
+                           alpha_geometry=key == "alpha")
+        scene, cam = load_scene(key, device=dev)
+        params = default_params(device=dev)
+        tm = default_tonemap(device=dev)
+        state = init_frame_state(cfg, cam)
+        step = make_step(cfg)
+        _reset_launches()
+        for _ in range(4):
+            state, out = step(scene, cam, params, tm, state)
+        launches = _launches()
+        img = out["hdr"].cpu().numpy()
+        ref = np.load(os.path.join(ROOT, "tests", "golden",
+                                   f"{key}_64_d2_f4.npy"))
+        err = float(np.abs(img - ref).mean()) if img.shape == ref.shape \
+            else float("inf")
+        print(f"golden {key}: mean abs err {err:.6f} (bound 0.02); "
+              f"launches {json.dumps(launches)}", flush=True)
+        if not err < 0.02:
+            fail(f"golden {key}: mean abs err {err} >= 0.02")
+        if min(launches[k] for k in WALKS) <= 0 or \
+                max(launches[k] for k in DRAINS + MXU) != 0:
+            fail(f"golden {key}: not traced through the walk kernel "
+                 f"({launches})")
 
 
 def reference_phase() -> None:
@@ -1959,6 +1979,96 @@ def reference_phase() -> None:
               f"{diff:.2e}", flush=True)
         if not diff <= 2e-3:
             fail(f"{scene} CUDA vs CPU mean abs diff {diff} > 2e-3")
+
+
+class UploadWatch:
+    """While active, keeps the host tree of each scene upload
+    (scene/data.py's batched_device_put); the upload still runs."""
+
+    def __init__(self):
+        self.trees = []
+
+    def __enter__(self):
+        from eidola_tpu_torch.scene import data
+
+        self.orig = data.batched_device_put
+
+        def kept(tree, device):
+            self.trees.append(tree)
+            return self.orig(tree, device)
+
+        data.batched_device_put = kept
+        return self
+
+    def __exit__(self, *exc):
+        from eidola_tpu_torch.scene import data
+
+        data.batched_device_put = self.orig
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield tree
+
+
+def upload_line(host, label: str) -> None:
+    """A scene's host tree onto the card through batched_device_put and
+    through to_device, in turns, 3 each: the host-to-device copies and the
+    ms of each (synchronised host clock); the two results bitwise equal
+    and every batched leaf at a 256-byte offset; and the pinned host
+    memory torch's caching allocator held before them."""
+    import numpy as np
+    import torch
+
+    from eidola_tpu_torch.utils import transfer as TT
+
+    # page-locked memory that torch's caching host allocator holds after
+    # the app's load (batched_device_put stages in pageable memory)
+    held = torch.cuda.host_memory_stats().get("allocated_bytes.current", 0)
+    names = ("batched_device_put", "to_device")
+    runs = {k: [] for k in names}
+    for turn in range(3):
+        outs = {}
+        for name in names:
+            torch.cuda.synchronize()
+            before = TT.COPIES[0]
+            t0 = time.perf_counter()
+            outs[name] = getattr(TT, name)(host, "cuda")
+            torch.cuda.synchronize()
+            runs[name].append((TT.COPIES[0] - before,
+                               (time.perf_counter() - t0) * 1e3))
+        if turn == 0:
+            bits = lambda t: (t.view(torch.int32)
+                              if t.dtype == torch.float32 else t)
+            dtypes = set()
+            for a, b in zip(_leaves(outs[names[0]]), _leaves(outs[names[1]]),
+                            strict=True):
+                if b is None:
+                    continue
+                dtypes.add(a.dtype)
+                if a.data_ptr() % TT.ALIGN or not torch.equal(bits(a),
+                                                              bits(b)):
+                    fail(f"upload ({label}): a batched leaf is unaligned or "
+                         f"differs from to_device's")
+            if runs[names[0]][0][0] > len(dtypes):
+                fail(f"upload ({label}): {runs[names[0]][0][0]} copies for "
+                     f"{len(dtypes)} dtypes")
+        del outs
+    arrays = [np.asarray(x) for x in _leaves(host)
+              if x is not None and not hasattr(x, "data_ptr")]
+    mb = sum(a.size * (8 if a.dtype.kind in "iu" else 4 if a.dtype.kind
+                       == "f" else a.itemsize) for a in arrays) / 2**20
+    print(f"upload ({label}; {card_line()}): {len(arrays)} numpy leaves, "
+          f"{mb:.1f} MiB on the card; " + "; ".join(
+              f"{name} {runs[name][0][0]} host-to-device copies, ms "
+              + ", ".join(f"{ms:.1f}" for _, ms in runs[name])
+              for name in names)
+          + f"; torch's pinned host memory after the app's load: {held} B",
+          flush=True)
+    torch.cuda.empty_cache()
 
 
 def build_phase() -> None:
@@ -1999,22 +2109,27 @@ def main() -> None:
 
     from eidola_tpu_torch.app.headless import set_numerics
 
+    lap = Laps()
     set_numerics()
     build_phase()
+    lap("build")
 
     di_cap, gi_cap, gx_cap = drain_capture(), walk_capture(), drain_capture()
-    di_launches, _ = run_phase("DI", DI_ARGS, (1080, 1920, 3), 2, "xla",
+    di_launches, _ = run_phase("DI (xla)", DI_ARGS, (1080, 1920, 3), 2, "xla",
                                [di_cap], DRAINS, WALKS + MXU)
-    gi_launches, _ = run_phase("GI (pallas)", GI_ARGS, (1080, 1920, 3), 4,
-                               "pallas", [gi_cap], WALKS, DRAINS + MXU)
+    lap("DI (xla)")
+    gi_launches, _ = run_phase("GI", GI_ARGS, (1080, 1920, 3), 4, None,
+                               [gi_cap], WALKS, DRAINS + MXU)
+    lap("GI")
     from eidola_tpu_torch.ops import bvh
 
     tw_cap = Capture(bvh, ("closest_hit", "any_hit"), lambda a: a[1].shape[0])
-    run_phase("GI (xla, 960x540)", GI_XLA_ARGS, (540, 960, 3), 2, "xla",
+    run_phase("GI (xla, 960x540)", GI_XLA_ARGS, (540, 960, 3), 1, "xla",
               [gx_cap, tw_cap], DRAINS, WALKS + MXU)
     compaction_check(tw_cap, "GI xla 960x540")
     del tw_cap
     torch.cuda.empty_cache()
+    lap("GI (xla, 960x540)")
 
     times = {}
     for name in DRAINS:
@@ -2027,19 +2142,34 @@ def main() -> None:
                                  "largest GI-frame traversal")
     del gi_cap
     torch.cuda.empty_cache()
+    lap("kernels (DI, GI calls)")
 
-    # the headline frame: every traversal through the walk kernels, the
-    # instanced bulk ("+inst") and the flat alpha BVH
-    st_walks, st_scene = walk_capture(), SceneWatch()
+    # the headline frame with no switch set: every traversal through the
+    # walk kernels, the instanced bulk ("+inst") and the flat alpha BVH;
+    # the app's own readout (not --quiet) kept apart
+    st_walks, st_scene, st_up = walk_capture(), SceneWatch(), UploadWatch()
+    app_out = io.StringIO()
     st_launches, st = run_phase(
-        "standin (pallas)", STANDIN, (1080, 1920, 3), 2, "pallas",
-        [st_walks], ("walk_closest+inst", "walk_any+inst", "walk_closest"),
-        DRAINS + MXU, watch=(st_scene,))
+        "standin", [a for a in STANDIN if a != "--quiet"], (1080, 1920, 3),
+        2, None, [st_walks],
+        ("walk_closest+inst", "walk_any+inst", "walk_closest"),
+        DRAINS + MXU, watch=(st_scene, st_up,
+                             contextlib.redirect_stdout(app_out)))
     check_standin(st)
+    app_lines = app_out.getvalue().splitlines()
+    for line in app_lines:
+        if line.startswith("load ") or line in st["profiler"].splitlines():
+            print(f"standin: the app's readout: {line}", flush=True)
+    if not any(line.startswith("Render ") for line in app_lines):
+        fail("standin: the app printed no \"Render\" scope")
+    upload_line(st_up.trees[0], "bistro_standin SceneData")
+    del st_up, app_out
+    lap("standin")
     # the options on the same frame, against it
     op_rows = options_phase(st, st_scene.loaded)
     del st, st_scene
     torch.cuda.empty_cache()
+    lap("options")
     st_sizes = st_walks.sizes
     check_calls("standin", st_launches, st_sizes)
     # the interactive frame: moving camera, spatiotemporal ReSTIR,
@@ -2050,36 +2180,42 @@ def main() -> None:
     watch, frames = PrimaryWatch(), FrameWatch()
     it_walks = Capture(bvh_walk, WALKS, lambda a: a[2].shape[1], watch.key)
     it_launches, it = run_phase(
-        "interactive (pallas)", INTERACTIVE, (1080, 1920, 3), 4, "pallas",
+        "interactive", INTERACTIVE, (1080, 1920, 3), 4, None,
         [it_walks], (PRIMARY0, SEEDED, "walk_any+inst", "walk_closest"),
         DRAINS + MXU, accum=1, watch=(watch, frames))
     check_interactive(it, frames, it_walks)
     del it, frames
     check_calls("interactive", it_launches, it_walks.sizes)
     torch.cuda.empty_cache()
+    lap("interactive")
     # the scene pipeline: a GLB and an .hdr through the headless app, then
     # dropped into the viewer
     with tempfile.TemporaryDirectory(prefix="eidola_smoke_") as tmp:
         glb, hdr = write_inputs(tmp)
         gl_walks, _, gl_ms = gltf_phase(glb, hdr, tmp)
         torch.cuda.empty_cache()
+        lap("gltf")
         vw_walks = viewer_phase(glb, hdr, gl_ms)
     torch.cuda.empty_cache()
+    lap("viewer")
     sd_cap = drain_capture()
     sd_launches, sd = run_phase(
-        "standin DI (xla)", STANDIN_DI, (1080, 1920, 3), 2, "xla",
+        "standin DI (xla)", STANDIN_DI, (1080, 1920, 3), 1, "xla",
         [sd_cap], DRAINS, WALKS + MXU)
     check_standin(sd)
     del sd
+    lap("standin DI (xla)")
     mx_cap = mxu_capture()
     mx_launches, mx = run_phase(
-        "standin mxu (DI, xla)", STANDIN_DI, (1080, 1920, 3), 2, "xla",
+        "standin mxu (DI, xla)", STANDIN_DI, (1080, 1920, 3), 1, "xla",
         [mx_cap], MXU, DRAINS + WALKS, mt="mxu")
     check_standin(mx)
     del mx
     torch.cuda.empty_cache()
+    lap("mxu (xla)")
     md_walks, md_launches = multidevice_phase()
     torch.cuda.empty_cache()
+    lap("multidevice")
     st_times = {
         "walk_closest+inst": check_walk(
             "walk_closest", st_walks.args["walk_closest+inst"],
@@ -2139,32 +2275,40 @@ def main() -> None:
                                 "largest standin mxu drain")
     del mx_cap
     torch.cuda.empty_cache()
+    lap("kernels (the frames' largest calls)")
     synthetic_phase(torch.device("cuda"))
+    lap("synthetic")
     golden_phase()
+    lap("goldens")
     reference_phase()
+    lap("reference")
 
     # (kernel, path, launches in that phase, times on its largest call)
     rows = ([(k, "DI bistro_flat 1920x1080", di_launches[k], times[k])
              for k in DRAINS]
-            + [(k, "GI bistro_flat 1920x1080 pallas", gi_launches[k],
+            + [(k, "GI bistro_flat 1920x1080 default traversal",
+                gi_launches[k],
                 times[k]) for k in WALKS]
-            + [(k.split("+")[0], "standin 1920x1080 pallas, "
+            + [(k.split("+")[0], "standin 1920x1080 default traversal, "
                 + ("instanced BVH" if "+" in k else "alpha BVH"),
                 len(st_sizes[k]), st_times[k]) for k in st_times]
-            + [(k, "interactive standin 1920x1080 pallas (orbit, "
+            + [(k, "interactive standin 1920x1080 default traversal (orbit, "
                 "spatiotemporal, shadow cadence 4, primary seed), "
                 + ("seeded primary, instanced BVH" if k == "walk_closest"
                    else "instanced BVH"), it_launches[k], it_times[k])
                for k in WALKS]
-            + [(k.split("+")[0], "GLB standin + .hdr 1920x1080 pallas "
+            + [(k.split("+")[0], "GLB standin + .hdr 1920x1080 default "
+                "traversal "
                 "(headless), " + ("instanced BVH" if "+" in k
                                   else "alpha BVH"),
                 len(gl_sizes[k]), gl_times[k]) for k in gl_times]
             + [(k.split("+")[0], "viewer: GLB standin + .hdr 1920x1080 "
-                "pallas, instanced BVH", len(vw_sizes[k]), vw_times[k])
+                "default traversal, instanced BVH", len(vw_sizes[k]),
+                vw_times[k])
                for k in vw_times]
             + [(k.split("+")[0], "multidevice (b): standin 1920x1080 "
-                "pallas, the sharded step at world size 1 over NCCL, rank 0,"
+                "default traversal, the sharded step at world size 1 over "
+                "NCCL, rank 0,"
                 " instanced BVH", md_launches[k.split("+")[0]], md_times[k])
                for k in md_times]
             + [(k, "standin DI 1920x1080 xla", sd_launches[k], sd_times[k])
@@ -2172,6 +2316,8 @@ def main() -> None:
             + [(k, "standin DI 1920x1080 mxu", mx_launches[k], times[k])
                for k in MXU]
             + [(k, path, n, t) for k, path, n, t in op_rows])
+    print("chip_smoke: seconds per phase " + json.dumps(
+        {k: round(v, 1) for k, v in lap.seconds.items()}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included", flush=True)
     line = {"kernels": [

@@ -20,10 +20,10 @@ opaque/alpha BVH split for alpha-tested materials.  Five hand-written
 CUDA kernels carry its traversals, each the port of a Pallas kernel,
 built with nvcc at first use and run on CUDA tensors only (on a CPU
 tensor the wrapper runs its plain-torch version):
-- `mt_fused`, `mt_any_fused` (`csrc/bvh_fused.cu`): the leaf drains of
-  the torch walk (`ops/bvh.py`), the default;
 - `walk_closest`, `walk_any` (`csrc/bvh_walk.cu`): the one-kernel walk
-  over flat and instanced BVHs under EIDOLA_TRAV=pallas;
+  over flat and instanced BVHs, every traversal's default on the card;
+- `mt_fused`, `mt_any_fused` (`csrc/bvh_fused.cu`): the leaf drains of
+  the torch walk (`ops/bvh.py`) under EIDOLA_TRAV=xla;
 - `mt_mxu` (`csrc/bvh_mxu.cu`): the per-event closest-hit drain under
   EIDOLA_MT=mxu.
 """

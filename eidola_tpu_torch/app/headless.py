@@ -22,9 +22,16 @@ As in the JAX app, the manipulator's first move rebuilds the projection
 at its own 60 degree fovy and the render aspect, whatever the scene
 camera's fovy.
 The alpha HitTest is on exactly when the scene has an alpha-tested
-material, as in the JAX app.  EIDOLA_TRAV=pallas traces every BVH, flat
-or instanced, through the one-kernel walk (ops/bvh_walk.py); EIDOLA_MT=mxu drains the
-torch walk's leaves with ops/bvh_mxu.py instead of the fused kernels.
+material, as in the JAX app.  On the card every BVH, flat or instanced,
+is traced through the one-kernel walk (ops/bvh_walk.py), and on the CPU
+through the torch walk (ops/packets.resolve_trav); EIDOLA_TRAV=xla gives
+the card the torch walk with its fused drain kernels, and EIDOLA_MT=mxu
+then drains its leaves with ops/bvh_mxu.py instead.
+The readout is the JAX app's beside the port's own: a MilliTimer line
+for the scene, BVH and environment load, and the Profiler's scopes
+"Compile+first" (frame 0) and "Render" (the frames after it); the JSON
+summary adds the stage split (StageTimer), the frame times and the
+traversal the frames took ("trav").
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from ..models.scenes import load_scene
+from ..ops.packets import resolve_trav
 from ..render.config import RenderConfig, default_params, default_tonemap
 from ..render.frame import init_frame_state, make_step
 from ..scene.camera import CameraManipulator, advance
@@ -44,7 +52,7 @@ from ..scene.hdr import build_env_map, load_hdr
 from ..utils.checkpoint import load_pytree, save_pytree
 from ..utils.monitor import DeviceMonitor
 from ..utils.png import encode_png
-from ..utils.profiler import StageTimer, trace
+from ..utils.profiler import MilliTimer, Profiler, StageTimer, trace
 
 DEBUG_MODES = {
     "none": 0, "direct": 1, "indirect": 2, "basecolor": 3, "normal": 4,
@@ -178,14 +186,13 @@ def run(argv=None) -> dict:
         h = max(h // args.descale // 32 * 32, 32)
     log = (lambda *a: None) if args.quiet else print
 
-    t0 = time.perf_counter()
+    load = MilliTimer("load ")
     scene, cam = load_scene(args.scene, device=device)
     if args.env:
         scene = attach_env(scene, build_env_map(load_hdr(args.env),
                                                 device=device))
     _sync(device)
-    load_s = time.perf_counter() - t0
-    log(f"scene+BVH: {load_s:.1f}s")
+    load_ms = load.ms() if args.quiet else load.print("scene+BVH")
 
     cfg = RenderConfig(
         width=w, height=h,
@@ -216,6 +223,7 @@ def run(argv=None) -> dict:
         state = load_pytree(args.load_state, state)
     step = make_step(cfg)
     timer = StageTimer(device)
+    prof = Profiler(enabled=True)
     mon = DeviceMonitor(device)
 
     frame_ms = []
@@ -225,8 +233,9 @@ def run(argv=None) -> dict:
             cam = manip.orbit(args.orbit, 0.0) if args.orbit else manip.hold()
         t1 = time.perf_counter()
         # stages are timed in steady state: frame 0 carries the warm-up
-        state, outputs = step(scene, cam, params, tm, state,
-                              timer=timer if i or args.frames == 1 else None)
+        state, outputs = prof.timeit(
+            "Render" if i else "Compile+first", step, scene, cam, params, tm,
+            state, timer=timer if i or args.frames == 1 else None)
         _sync(device)
         frame_ms.append((time.perf_counter() - t1) * 1e3)
         mon.refresh()
@@ -254,11 +263,13 @@ def run(argv=None) -> dict:
         np.save(args.hdr_out, outputs["hdr"].cpu().numpy())
     if args.save_state:
         save_pytree(args.save_state, state)
+    log(prof.summary())
     log(mon.summary())
     stages = {k: v / len(steady) for k, v in timer.summary().items()}
     summary = {
         "scene": args.scene, "width": w, "height": h, "frames": args.frames,
-        "device": str(device), "load_s": load_s,
+        "device": str(device), "trav": resolve_trav(device),
+        "load_s": load_ms / 1e3,
         "ms_per_frame": float(np.mean(steady)), "frame_ms": frame_ms,
         "stage_ms_per_frame": stages, "image_mean": float(img.mean()),
         "alpha_geometry": cfg.alpha_geometry, "env_mode": cfg.env_mode,
@@ -266,7 +277,7 @@ def run(argv=None) -> dict:
         "frame_idx": int(state.frame_idx),
         "n_tris": int(scene.bvh.n_tris),
         "n_leaves": int(scene.bvh.leaf_blocks.shape[0]),
-        "profile": profile,
+        "profile": profile, "profiler": prof.summary(),
     }
     return dict(summary, image=img, state=state, scene=scene)
 

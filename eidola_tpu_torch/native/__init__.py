@@ -1,5 +1,5 @@
-"""C++ host builders of the port (alias tables, binned-SAH BVH), bound
-with ctypes.
+"""C++ host builders of the port (alias tables, binned-SAH BVH) and the
+octahedral normal codec, bound with ctypes.
 
 `src/eidola_native.cpp` is compiled with g++ at first use into the
 git-ignored `eidola_tpu_torch/_build/` (utils/cuda_build.Build, named by a
@@ -40,6 +40,7 @@ def _bind(path: str):
     f64p = np.ctypeslib.ndpointer(np.float64, flags="C")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
+    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C")
     lib.eidola_build_alias.restype = c.c_double
     lib.eidola_build_alias.argtypes = [f64p, c.c_int64, i32p, f32p, f32p,
                                        f32p]
@@ -48,6 +49,10 @@ def _bind(path: str):
         f32p, f32p, f32p, c.c_int64, c.c_int32,
         f32p, f32p, i32p, i32p, i32p, i32p, i64p,
     ]
+    lib.eidola_oct_encode.restype = None
+    lib.eidola_oct_encode.argtypes = [f32p, c.c_int64, u32p]
+    lib.eidola_oct_decode.restype = None
+    lib.eidola_oct_decode.argtypes = [u32p, c.c_int64, f32p]
     return lib
 
 
@@ -120,3 +125,28 @@ def build_bvh_native(tb_min, tb_max, centroid, leaf_size: int):
     return (bmin[:n_nodes].copy(), bmax[:n_nodes].copy(),
             escape[:n_nodes].astype(np.int64), blk[:n_nodes].astype(np.int64),
             leaves)
+
+
+def oct_encode_native(normals: np.ndarray):
+    """(..., 3) f32 unit vectors -> (...) uint32 octahedral words, or None
+    when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = np.ascontiguousarray(normals, np.float32)
+    count = n.reshape(-1, 3).shape[0]
+    out = np.empty(count, np.uint32)
+    lib.eidola_oct_encode(n.reshape(-1), count, out)
+    return out.reshape(normals.shape[:-1])
+
+
+def oct_decode_native(packed: np.ndarray):
+    """(...) uint32 octahedral words -> (..., 3) f32 unit vectors, or None
+    when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    p = np.ascontiguousarray(packed, np.uint32).reshape(-1)
+    out = np.empty(p.size * 3, np.float32)
+    lib.eidola_oct_decode(p, p.size, out)
+    return out.reshape(np.shape(packed) + (3,))

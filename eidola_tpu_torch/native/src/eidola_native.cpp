@@ -4,6 +4,7 @@
 //     hdr_sampling.cpp:107-176 — 2M-texel env maps need native speed)
 //   - binned-SAH BVH topology + preorder/escape-link flatten
 //     (ref nvvk::RaytracingBuilderKHR FAST_TRACE build, accelstruct.cpp)
+//   - 32-bit octahedral normal codec  (ref shaders/compress.glsl)
 //
 // Exposed as a plain C ABI consumed via ctypes
 // (eidola_tpu_torch/native/__init__.py); the numpy builders of
@@ -267,6 +268,45 @@ int64_t eidola_build_bvh(const float* tb_min, const float* tb_max,
   leaf_start[n_leaves] = (int32_t)tri_cursor;
   *n_leaves_out = n_leaves;
   return n_nodes;
+}
+
+// ------------------------------------------------------- oct compression --
+// 32-bit octahedral pack/unpack (ref shaders/compress.glsl:111-180).
+static inline float sgn(float v) { return v >= 0.f ? 1.f : -1.f; }
+
+void eidola_oct_encode(const float* n, int64_t count, uint32_t* out) {
+  for (int64_t i = 0; i < count; ++i) {
+    float x = n[i * 3], y = n[i * 3 + 1], z = n[i * 3 + 2];
+    float l = std::abs(x) + std::abs(y) + std::abs(z);
+    if (l < 1e-20f) { out[i] = 0; continue; }
+    float px = x / l, py = y / l;
+    if (z < 0.f) {
+      float ox = (1.f - std::abs(py)) * sgn(px);
+      float oy = (1.f - std::abs(px)) * sgn(py);
+      px = ox; py = oy;
+    }
+    auto snorm16 = [](float v) -> uint32_t {
+      int q = (int)std::lround(std::min(std::max(v, -1.f), 1.f) * 32767.f);
+      return (uint32_t)(uint16_t)(int16_t)q;
+    };
+    out[i] = snorm16(px) | (snorm16(py) << 16);
+  }
+}
+
+void eidola_oct_decode(const uint32_t* packed, int64_t count, float* out) {
+  for (int64_t i = 0; i < count; ++i) {
+    int16_t qx = (int16_t)(packed[i] & 0xFFFF);
+    int16_t qy = (int16_t)(packed[i] >> 16);
+    float x = (float)qx / 32767.f, y = (float)qy / 32767.f;
+    float z = 1.f - std::abs(x) - std::abs(y);
+    if (z < 0.f) {
+      float ox = (1.f - std::abs(y)) * sgn(x);
+      float oy = (1.f - std::abs(x)) * sgn(y);
+      x = ox; y = oy;
+    }
+    float l = std::sqrt(std::max(x * x + y * y + z * z, 1e-20f));
+    out[i * 3] = x / l; out[i * 3 + 1] = y / l; out[i * 3 + 2] = z / l;
+  }
 }
 
 }  // extern "C"

@@ -217,14 +217,19 @@ def build_bvh_np(v0, v1, v2, leaf_size: int, prim_ids=None,
     )
 
 
-def bvh_to_device(fields: dict, device) -> BVH:
-    """numpy BVH fields -> BVH of tensors (ints as int64, floats f32)."""
+def bvh_host(fields: dict) -> BVH:
+    """numpy BVH fields -> a BVH of numpy leaves, its leaf tables made."""
     if fields.get("leaf_cmat") is None:
         cm, an = bvh_fused.build_leaf_tables_np(
             np.asarray(fields["leaf_blocks"], np.float32),
             np.asarray(fields["leaf_blocks"]).shape[1] // 12)
         fields = dict(fields, leaf_cmat=cm, leaf_anchor=an)
-    return BVH(**{k: to_device(fields.get(k), device) for k in BVH._fields})
+    return BVH(**{k: fields.get(k) for k in BVH._fields})
+
+
+def bvh_to_device(fields: dict, device) -> BVH:
+    """numpy BVH fields -> BVH of tensors (ints as int64, floats f32)."""
+    return to_device(bvh_host(fields), device)
 
 
 def build_bvh(v0, v1, v2, *, device, leaf_size: int | None = None,

@@ -24,11 +24,15 @@ contiguous run of whole packets.  The rank-local frame
 covers those, with no communication.
 
 `TRAV` selects the traversal every door uses, from EIDOLA_TRAV as in the
-JAX package: "xla" (default) is the torch walk of ops/bvh.py with its
-drain kernels, "pallas" the one-kernel walk of ops/bvh_walk.py, which
+JAX package: "pallas" is the one-kernel walk of ops/bvh_walk.py, which
 takes flat and instanced BVHs alike (the JAX package's kernel reads flat
 leaf rows only and leaves an instanced BVH on its XLA walk,
-packets.py:72-79).
+packets.py:72-79), "xla" the torch walk of ops/bvh.py with its drain
+kernels, and "auto" (the default) resolves per call by the rays' device
+(`resolve_trav`): the walk kernel on CUDA, the torch walk on the CPU, as
+the JAX package resolves its own traversal by backend (packets.py:72-78).
+A build or launch failure of the walk kernel is an error: nothing falls
+back to the torch walk.
 
 Under EIDOLA_COUNT_RAYS=1 (read at each call) every front door appends
 its live ray count (t_max >= t_min lanes) to `RAY_LEDGER` and its name
@@ -51,7 +55,8 @@ from .halo import get_bands
 TILE_H = 8
 TILE_W = 16
 
-TRAV = os.environ.get("EIDOLA_TRAV", "xla")
+TRAV = os.environ.get("EIDOLA_TRAV", "auto")
+TRAVS = ("auto", "xla", "pallas")
 # wavefront sort-key layout (see ray_sort_keys): o21d3 | d3o21 | o15d6
 KEY = os.environ.get("EIDOLA_KEY", "o15d6")
 
@@ -78,8 +83,18 @@ def _is_inst(bvh) -> bool:
     return hasattr(bvh, "leaf_mesh_row")
 
 
+def resolve_trav(device) -> str:
+    """The traversal TRAV gives rays on `device`: "auto" is "pallas" on
+    CUDA and "xla" elsewhere; "xla" and "pallas" stand as they are."""
+    if TRAV == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
+    if TRAV not in TRAVS:
+        raise ValueError(f"EIDOLA_TRAV={TRAV!r}: want one of {TRAVS}")
+    return TRAV
+
+
 def closest_hit(bvh, o, d, t_min, t_max, max_steps: int = 100_000):
-    if TRAV == "pallas":
+    if resolve_trav(o.device) == "pallas":
         return _walk.closest_hit_walk(bvh, o, d, t_min, t_max, max_steps)
     if _is_inst(bvh):
         return _inst.closest_hit_instanced(bvh, o, d, t_min, t_max,
@@ -88,7 +103,7 @@ def closest_hit(bvh, o, d, t_min, t_max, max_steps: int = 100_000):
 
 
 def any_hit(bvh, o, d, t_min, t_max, max_steps: int = 100_000):
-    if TRAV == "pallas":
+    if resolve_trav(o.device) == "pallas":
         return _walk.any_hit_walk(bvh, o, d, t_min, t_max, max_steps)
     if _is_inst(bvh):
         return _inst.any_hit_instanced(bvh, o, d, t_min, t_max, max_steps)

@@ -102,6 +102,19 @@ def rand(state):
     return new_state, _to_float01(word)
 
 
+def rand2(state):
+    state, u1 = rand(state)
+    state, u2 = rand(state)
+    return state, u1, u2
+
+
+def rand3(state):
+    state, u1 = rand(state)
+    state, u2 = rand(state)
+    state, u3 = rand(state)
+    return state, u1, u2, u3
+
+
 def seed_pixels(h: int, w: int, frame_word, *, device=None, row0: int = 0):
     """Per-pixel seeds for one frame: tea(pixelIndex, frame_word), for the
     h rows of a w-wide image that start at global row `row0` (a rank's

@@ -166,9 +166,10 @@ def render_rank(group: RowGroup, job: dict, scene=None, cam=None) -> dict:
     """Render `job["frames"]` frames of `job["scene"]` (a registry name,
     loaded here unless `scene`, `cam` are given) under `job["cfg"]` on
     `job["device"]` as `group`'s rank, `job["trav"]` the traversal
-    (ops/packets.TRAV), the camera orbiting `job["orbit"]` radians a
-    frame (orbit_cameras), the tonemapper's auto exposure bits
-    `job["auto_exposure"]` (0 by default).  Returns, for the rank: each
+    (ops/packets.TRAV; without it the rank keeps its own, "auto" by
+    default: the walk kernel on a card), the camera orbiting
+    `job["orbit"]` radians a frame (orbit_cameras), the tonemapper's auto
+    exposure bits `job["auto_exposure"]` (0 by default).  Returns, for the rank: each
     frame's full `job["output"]` ("image" by default) gathered from every
     rank (numpy, on rank 0 only), its ms per frame (synchronised host
     clock), the collective summary of frame 1 (the first after the

@@ -22,9 +22,10 @@ import torch
 
 from ..ops import octahedral as octa
 from ..ops.alias_table import AliasTable, make_alias_table
-from ..ops.bvh import BVH, build_bvh, leaf_size_for
-from ..ops.bvh_instanced import affine_3x4, build_instanced_bvh
-from ..utils.transfer import to_device
+from ..ops.bvh import BVH, build_bvh_np, bvh_host, leaf_size_for
+from ..ops.bvh_instanced import (InstancedBVH, affine_3x4,
+                                 build_instanced_bvh_np)
+from ..utils.transfer import batched_device_put
 
 ALPHA_OPAQUE = 0
 ALPHA_MASK = 1
@@ -414,19 +415,21 @@ def upload_scene(v0, v1, v2, *, device, normals=None, uvs=None,
 
     sunsky = finalize_sunsky(sunsky if sunsky is not None
                              else default_sunsky())
-    # opaque/alpha split: the HitTest hops never touch the opaque bulk
+    # opaque/alpha split: the HitTest hops never touch the opaque bulk;
+    # the BVHs stay on the host and upload with the rest of the scene
+    if leaf_size is None:
+        leaf_size = leaf_size_for(device)
     T = v0.shape[0]
     alpha_tri = np.asarray(mat_table.alpha_mode)[mat_ids] != ALPHA_OPAQUE
     if alpha_tri.any() and not alpha_tri.all():
         op = np.nonzero(~alpha_tri)[0].astype(np.int32)
         al = np.nonzero(alpha_tri)[0].astype(np.int32)
-        bvh = build_bvh(v0[op], v1[op], v2[op], device=device,
-                        leaf_size=leaf_size, prim_ids=op, n_tris_global=T)
-        bvh_alpha = build_bvh(v0[al], v1[al], v2[al], device=device,
-                              leaf_size=leaf_size, prim_ids=al,
-                              n_tris_global=T)
+        bvh = bvh_host(build_bvh_np(v0[op], v1[op], v2[op], leaf_size,
+                                    prim_ids=op, n_tris_global=T))
+        bvh_alpha = bvh_host(build_bvh_np(v0[al], v1[al], v2[al], leaf_size,
+                                          prim_ids=al, n_tris_global=T))
     else:
-        bvh = build_bvh(v0, v1, v2, device=device, leaf_size=leaf_size)
+        bvh = bvh_host(build_bvh_np(v0, v1, v2, leaf_size))
         bvh_alpha = None
     host = SceneData(
         bvh=bvh,
@@ -447,7 +450,7 @@ def upload_scene(v0, v1, v2, *, device, normals=None, uvs=None,
         env=None,
         sunsky=sunsky,
     )
-    return to_device(host, device)
+    return batched_device_put(host, device)
 
 
 def upload_scene_instanced(meshes: list[dict], instances, *, device,
@@ -589,12 +592,12 @@ def upload_scene_instanced(meshes: list[dict], instances, *, device,
             if mi in remap:
                 sel_inst.append((remap[mi], m))
                 sel_base.append(int(tri_base[i]))
-        return build_instanced_bvh(
-            sel_meshes, sel_inst, device=device,
-            leaf_size=alpha_leaf() if want_alpha else leaf_size,
+        return InstancedBVH(**build_instanced_bvh_np(
+            sel_meshes, sel_inst,
+            alpha_leaf() if want_alpha else leaf_size,
             mesh_prim_ids=sel_ids, mesh_tris_full=sel_full,
             inst_tri_base_override=np.asarray(sel_base, np.int64),
-            n_tris_virtual=n_virtual)
+            n_tris_virtual=n_virtual))
 
     def flat_alpha_bvh():
         """World-space flat BVH over the alpha triangles (ids in the
@@ -612,10 +615,10 @@ def upload_scene_instanced(meshes: list[dict], instances, *, device,
             v1w.append((mv1[idx] @ r3.T + t3).astype(np.float32))
             v2w.append((mv2[idx] @ r3.T + t3).astype(np.float32))
             ids.append((idx + int(tri_base[i])).astype(np.int32))
-        return build_bvh(np.concatenate(v0w), np.concatenate(v1w),
-                         np.concatenate(v2w), device=device,
-                         leaf_size=alpha_leaf(), prim_ids=np.concatenate(ids),
-                         n_tris_global=n_virtual)
+        return bvh_host(build_bvh_np(
+            np.concatenate(v0w), np.concatenate(v1w), np.concatenate(v2w),
+            alpha_leaf(), prim_ids=np.concatenate(ids),
+            n_tris_global=n_virtual))
 
     # EIDOLA_ALPHA_FLAT=0 builds the alpha half instanced, as the opaque
     # one (eidola_tpu/scene/data.py:750-756)
@@ -624,8 +627,8 @@ def upload_scene_instanced(meshes: list[dict], instances, *, device,
         bvh = subset_bvh(False)
         bvh_alpha = flat_alpha_bvh() if alpha_flat else subset_bvh(True)
     else:
-        bvh = build_instanced_bvh(mesh_v, instances, device=device,
-                                  leaf_size=leaf_size)
+        bvh = InstancedBVH(**build_instanced_bvh_np(mesh_v, instances,
+                                                    leaf_size))
         bvh_alpha = None
 
     host = SceneData(
@@ -648,7 +651,7 @@ def upload_scene_instanced(meshes: list[dict], instances, *, device,
         sunsky=sunsky,
         inst=inst,
     )
-    return to_device(host, device)
+    return batched_device_put(host, device)
 
 
 def attach_env(scene: SceneData, env: EnvMap) -> SceneData:

@@ -18,7 +18,7 @@ import torch
 
 from ..ops.alias_table import make_alias_table, sample_alias
 from ..ops.math import spherical_uv, uv_to_dir
-from ..utils.transfer import to_device
+from ..utils.transfer import batched_device_put
 from .data import EnvMap
 
 _LUM = np.asarray([0.2126, 0.7152, 0.0722])
@@ -120,7 +120,7 @@ def build_env_map(image: np.ndarray, *, device) -> EnvMap:
     theta = (np.arange(H) + 0.5) / H * np.pi
     d_omega = (2.0 * np.pi / W) * (np.pi / H) * np.sin(theta)[:, None]
     table, integral = make_alias_table((lum * d_omega).ravel())
-    return to_device(EnvMap(
+    return batched_device_put(EnvMap(
         image=np.ascontiguousarray(image[..., :3]),
         table=table,
         integral=np.float32(integral),

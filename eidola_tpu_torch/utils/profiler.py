@@ -1,5 +1,12 @@
 """Frame timing (the port's counterpart of eidola_tpu/utils/profiler.py).
 
+- `Profiler` keeps named recurring scopes (`scope`, `timeit`), each
+  averaged over its last 64 samples, and `summary()` prints them as the
+  JAX package's does; `MilliTimer` times the load phase.  A scope reads
+  the host clock, so it waits for its `block_on` tensors first: it
+  synchronises each CUDA device they live on (the counterpart of
+  `jax.block_until_ready`; CPU tensors are ready when the call
+  returns), and only when the profiler is enabled.
 - `StageTimer.mark(name)` closes the stage `name` at the current point of
   the stream: on a CUDA device it records a CUDA event (device time, no
   sync), on the CPU it reads the host clock.  `summary()` returns the
@@ -15,10 +22,107 @@
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
+from collections import deque
+from dataclasses import dataclass, field
 
 import torch
+
+
+def _tensors(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def block_until_ready(tree):
+    """Wait for the work that makes the tensors of `tree` (nested tuples,
+    lists, dicts): one synchronize per CUDA device among them."""
+    for dev in {t.device for t in _tensors(tree) if t.is_cuda}:
+        torch.cuda.synchronize(dev)
+    return tree
+
+
+@dataclass
+class _Scope:
+    samples: deque = field(default_factory=lambda: deque(maxlen=64))
+    total: float = 0.0
+    count: int = 0
+
+    def add(self, dt: float):
+        self.samples.append(dt)
+        self.total += dt
+        self.count += 1
+
+    @property
+    def avg_ms(self) -> float:
+        if not self.samples:
+            return 0.0
+        return sum(self.samples) / len(self.samples) * 1e3
+
+
+class Profiler:
+    """Wall-clock profiler with named recurring scopes.
+
+    >>> prof = Profiler(enabled=True)
+    >>> with prof.scope("Render", block_on=outputs["image"]):
+    ...     state, outputs = step(...)
+    >>> print(prof.summary())
+    """
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self.scopes: dict[str, _Scope] = {}
+
+    @contextlib.contextmanager
+    def scope(self, name: str, block_on=None):
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        yield
+        if block_on is not None:
+            block_until_ready(block_on)
+        self.scopes.setdefault(name, _Scope()).add(time.perf_counter() - t0)
+
+    def timeit(self, name: str, fn, *args, **kwargs):
+        """Run fn, wait for its result, record under `name`, return it."""
+        if not self.enabled:
+            return fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = block_until_ready(fn(*args, **kwargs))
+        self.scopes.setdefault(name, _Scope()).add(time.perf_counter() - t0)
+        return out
+
+    def summary(self) -> str:
+        lines = [f"{'scope':<24} {'avg ms':>9} {'calls':>7} {'total s':>9}"]
+        for name, s in self.scopes.items():
+            lines.append(
+                f"{name:<24} {s.avg_ms:>9.2f} {s.count:>7} {s.total:>9.2f}")
+        return "\n".join(lines)
+
+
+class MilliTimer:
+    """Load-phase wall timer, as the JAX package's."""
+
+    def __init__(self, label: str = ""):
+        self.label = label
+        self.t0 = time.perf_counter()
+
+    def ms(self) -> float:
+        return (time.perf_counter() - self.t0) * 1e3
+
+    def print(self, what: str = ""):
+        dt = self.ms()
+        print(f"{self.label}{what}: {dt:.1f} ms")
+        return dt
 
 
 class StageTimer:

@@ -468,3 +468,71 @@ def test_sharded_step_world_one_over_nccl(cuda):
     assert res["launches"]["walk_closest"] > 0
     assert res["launches"]["walk_any"] > 0
     assert res["audit"]["total"] >= 0 and res["rows"]["gbuf"] == 64
+
+
+@pytest.mark.cuda
+def test_default_trav_takes_walk_kernel(cuda, monkeypatch):
+    """With nothing set ("auto"), CUDA rays through the image door launch
+    walk_closest and no drain kernel."""
+    from eidola_tpu_torch.ops import packets as TP
+
+    monkeypatch.setattr(TP, "TRAV", "auto")
+    rng = np.random.default_rng(21)
+    c = rng.uniform(-2, 2, (1500, 3)).astype(np.float32)
+    v = [c + rng.normal(0, 0.3, (1500, 3)).astype(np.float32)
+         for _ in range(3)]
+    bvh = TB.build_bvh(*v, device=cuda)
+    h, w = 32, 64
+    o = torch.tensor([0.3, 0.2, 9.0], device=cuda).expand(h, w, 3)
+    tgt = torch.from_numpy(rng.uniform(-2, 2, (h, w, 3)).astype(
+        np.float32)).to(cuda)
+    d = (tgt - o) / (tgt - o).norm(dim=-1, keepdim=True)
+    tmin = torch.full((h, w), 1e-4, device=cuda)
+    tmax = torch.full((h, w), 1e9, device=cuda)
+    TW.reset_launches()
+    TF.reset_launches()
+    TM.reset_launches()
+    rec = TP.closest_hit_img(bvh, o.contiguous(), d, tmin, tmax)
+    torch.cuda.synchronize()
+    assert TP.resolve_trav(o.device) == "pallas"
+    assert TW.LAUNCHES["walk_closest"] == 1
+    assert TF.LAUNCHES["mt_fused"] == TF.LAUNCHES["mt_any_fused"] == 0
+    assert TM.LAUNCHES["mt_mxu"] == 0
+    assert float((rec.tri >= 0).float().mean()) > 0.05
+
+
+@pytest.mark.cuda
+def test_batched_device_put_on_the_card(cuda, monkeypatch):
+    """A scene's host tree uploaded with one copy per dtype: every leaf at
+    a 256-byte offset on the card, bit for bit equal to to_device's."""
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.scene import data as TD
+    from eidola_tpu_torch.utils import transfer as TT
+
+    seen = []
+    real = TD.batched_device_put
+    monkeypatch.setattr(TD, "batched_device_put",
+                        lambda t, d: seen.append(t) or real(t, d))
+    load_scene("mini_grove", device=cuda)
+    want = TT.to_device(seen[0], cuda)
+    before = TT.COPIES[0]
+    got = TT.batched_device_put(seen[0], cuda)
+    copies = TT.COPIES[0] - before
+
+    def leaves(tree):
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            for x in tree:
+                yield from leaves(x)
+        else:
+            yield tree
+
+    dtypes = set()
+    for a, b in zip(leaves(got), leaves(want), strict=True):
+        if b is None:
+            assert a is None
+            continue
+        dtypes.add(a.dtype)
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+        assert a.data_ptr() % TT.ALIGN == 0
+        assert torch.equal(_bits(a), _bits(b))
+    assert 1 <= copies <= len(dtypes)

@@ -157,11 +157,20 @@ def _small_instanced_bvh():
                                   device=torch.device("cpu"), leaf_size=8)
 
 
-@pytest.mark.parametrize("instanced", [False, True], ids=["flat", "instanced"])
-def test_trav_switch_routes_front_doors(case, monkeypatch, instanced):
+@pytest.mark.parametrize("instanced,first", [
+    (False, "xla"), (True, "xla"), (False, "auto"), (True, "auto")],
+    ids=["flat", "instanced", "flat-auto", "instanced-auto"])
+def test_trav_switch_routes_front_doors(case, monkeypatch, instanced, first):
     """EIDOLA_TRAV=pallas (packets.TRAV) sends the image doors through
     the walk kernel's wrapper, for a flat and for an instanced BVH (with
-    its instance tables); the default sends them through ops/bvh."""
+    its instance tables); "auto" (the default) on CPU rays and "xla" send
+    them through the torch walk (ops/bvh, ops/bvh_instanced)."""
+    monkeypatch.setattr(P, "TRAV", first)
+    torch_walks = []
+    for mod, name in ((tb, "closest_hit"), (TI, "closest_hit_instanced")):
+        real_walk = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, real=real_walk, **k: (
+            torch_walks.append(real) or real(*a, **k)))
     tbvh = _small_instanced_bvh() if instanced else case[1]
     h, w = 16, 32
     rng = np.random.default_rng(3)
@@ -175,9 +184,9 @@ def test_trav_switch_routes_front_doors(case, monkeypatch, instanced):
     monkeypatch.setattr(W, "walk_closest", lambda *a, **k: calls.append(
         k.get("inst") is not None) or real(*a, **k))
     default = P.closest_hit_img(tbvh, o, d, tmin, tmax)
-    assert not calls
+    assert not calls and len(torch_walks) == 1
     monkeypatch.setattr(P, "TRAV", "pallas")
     rec = P.closest_hit_img(tbvh, o, d, tmin, tmax)
-    assert calls == [instanced]
+    assert calls == [instanced] and len(torch_walks) == 1
     assert (rec.tri >= 0).float().mean() > 0.05
     assert (rec.tri == default.tri).float().mean() >= 0.999
