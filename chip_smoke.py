@@ -43,6 +43,12 @@ drains.  In order:
    host-to-device copies and ms of each (bitwise equal, every batched
    leaf at a 256-byte offset, at most one copy per dtype), and the
    pinned host memory torch's caching allocator holds after the load;
+   then the bench phase: the port's bench (eidola_tpu_torch/bench.py,
+   `measure`, what `python -m eidola_tpu_torch.bench` runs) on the scene
+   the standin phase loaded, 1 warm-up and 3 timed frames, the stage
+   split, the profiled frame and the ray frame: its JSON has every
+   field, `correct` true (the cornell golden on the card), the ray count
+   measured, walk launches and no drain, per frame and in the run;
 7. options phase: the same frame under each of the JAX package's build
    and trace options, the switch in the environment: (s) EIDOLA_SBVH=1,
    (f) EIDOLA_ALPHA_FLAT=0, (c) EIDOLA_ALPHA_CULL=1, (d)
@@ -150,7 +156,10 @@ drains.  In order:
 15. goldens on the card: cornell, punctual, textured, hdr and alpha (the
    HitTest on) at 64x64, max_depth=2, traversal_max_steps=1024, 4
    frames, through the walk kernel, each within 0.02 mean abs of
-   tests/golden/*_64_d2_f4.npy;
+   tests/golden/*_64_d2_f4.npy; then one step of the entry point
+   (eidola_tpu_torch/entry.py `entry("cuda")`, cornell 64x64 at the JAX
+   entry's lean config): its image finite and within 0.02 mean abs of
+   the same step on the CPU, through the walk kernels and no drain;
 16. holds small DI frames on the card against the same frames through
    the plain versions on the CPU (cornell 32x32, stress 64x64);
 17. prints one JSON line with an entry per kernel and path (the
@@ -204,6 +213,8 @@ KERNELS = {   # name: (TPU kernel it replaces, source)
     "walk_any": ("eidola_tpu/ops/bvh_pallas.py:43", WALK_SRC),
     "mt_mxu": ("eidola_tpu/ops/bvh_mxu.py:83", MXU_SRC),
 }
+# KERNELS grouped as eidola_tpu_torch/bench.py groups them (checked in
+# build_phase, once the package is importable)
 DRAINS = ("mt_fused", "mt_any_fused")
 WALKS = ("walk_closest", "walk_any")
 MXU = ("mt_mxu",)
@@ -269,17 +280,15 @@ def time_ms(fn, reps: int) -> float:
 
 
 def _launches() -> dict:
-    from eidola_tpu_torch.ops import bvh_fused, bvh_mxu, bvh_walk
+    from eidola_tpu_torch.bench import read_launches
 
-    return {**bvh_fused.LAUNCHES, **bvh_walk.LAUNCHES, **bvh_mxu.LAUNCHES}
+    return read_launches()
 
 
 def _reset_launches() -> None:
-    from eidola_tpu_torch.ops import bvh_fused, bvh_mxu, bvh_walk
+    from eidola_tpu_torch.bench import reset_launches
 
-    bvh_fused.reset_launches()
-    bvh_walk.reset_launches()
-    bvh_mxu.reset_launches()
+    reset_launches()
 
 
 class Capture:
@@ -489,6 +498,79 @@ def check_standin(res) -> None:
     if not res["alpha_geometry"] or not lo <= res["n_tris"] <= hi:
         fail(f"standin: alpha_geometry {res['alpha_geometry']}, "
              f"{res['n_tris']} triangles (want True, {lo:.0f}-{hi:.0f})")
+
+
+BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "mrays_per_s",
+                "mrays_method", "rays_per_frame", "scene", "n_tris", "width",
+                "height", "device", "trav", "load_s", "first_frame_ms",
+                "frames", "peak_mem_gib", "launches_per_frame", "stage_ms",
+                "steady_busy_share", "golden_s", "golden_mean_abs",
+                "correct")
+BENCH_STAGES = {"primary_trace", "shading_ris", "shadow_trace",
+                "di_temporal_shade", "gi_trace", "gi_resample", "denoise",
+                "compose_post"}
+
+
+def bench_phase(loaded, load_s: float) -> None:
+    """The port's bench on the standin phase's (scene, camera): 1 warm-up
+    and 3 timed frames, then its stage split, profiled frame and ray
+    frame, its launch counts set to 0 just before and read just after."""
+    import torch
+
+    from eidola_tpu_torch import bench
+
+    scene, cam = loaded
+    _reset_launches()
+    out = bench.measure(scene, cam, torch.device("cuda"), "bistro_standin",
+                        warmup=1, iters=3, load_s=load_s)
+    torch.cuda.synchronize()
+    launches = _launches()
+    print("bench: " + json.dumps(out), flush=True)
+    missing = [k for k in BENCH_FIELDS if k not in out]
+    if missing:
+        fail(f"bench: the JSON lacks {missing}")
+    if out["correct"] is not True or out["frames"]["n"] != 3:
+        fail(f"bench: correct {out['correct']}, {out['frames']['n']} frames")
+    if set(out["stage_ms"]) != BENCH_STAGES:
+        fail(f"bench: stages {sorted(out['stage_ms'])}")
+    if not out["mrays_method"].startswith("measured") or \
+            not out["rays_per_frame"] > 0:
+        fail(f"bench: rays {out['rays_per_frame']} ({out['mrays_method']})")
+    if not out["steady_busy_share"] > 0 or not out["peak_mem_gib"] > 0:
+        fail("bench: no busy share or peak memory")
+    per = out["launches_per_frame"]
+    for got in (per, launches):
+        if min(got[k] for k in WALKS) <= 0 or \
+                max(got[k] for k in DRAINS + MXU) != 0:
+            fail(f"bench: not traced through the walk kernels alone ({got})")
+    print("bench: launches in the run (golden, warm-up, timed, stage, "
+          f"profiled and ray frames) {json.dumps(launches)}", flush=True)
+
+
+def entry_phase() -> None:
+    """One step of eidola_tpu_torch/entry.py's entry() on the card, held
+    to the same step on the CPU."""
+    import torch
+
+    from eidola_tpu_torch.entry import entry
+
+    _reset_launches()
+    fn, args = entry("cuda")
+    _, img = fn(*args)
+    torch.cuda.synchronize()
+    launches = _launches()
+    fn, args = entry("cpu")
+    err = float((img.cpu() - fn(*args)[1]).abs().mean())
+    print(f"entry: one step of cornell 64x64 on the card, mean abs {err:.6f}"
+          f" from the CPU step (bound 0.02); launches {json.dumps(launches)}",
+          flush=True)
+    if tuple(img.shape) != (64, 64, 3) or not bool(torch.isfinite(img).all()):
+        fail(f"entry: image {tuple(img.shape)} not finite")
+    if not err < 0.02:
+        fail(f"entry: mean abs {err} from the CPU step >= 0.02")
+    if min(launches[k] for k in WALKS) <= 0 or \
+            max(launches[k] for k in DRAINS + MXU) != 0:
+        fail(f"entry: not traced through the walk kernels ({launches})")
 
 
 def check_interactive(res, frames: FrameWatch, walks: Capture) -> None:
@@ -2072,11 +2154,14 @@ def upload_line(host, label: str) -> None:
 
 
 def build_phase() -> None:
+    from eidola_tpu_torch import bench
     from eidola_tpu_torch.native import native_build
     from eidola_tpu_torch.utils.cuda_build import (CUDA_SOURCES,
                                                    build_together, cuda_build,
                                                    ptxas_summary)
 
+    if (bench.WALKS, bench.DRAINS, bench.MXU) != (WALKS, DRAINS, MXU):
+        fail("the kernel groups differ from eidola_tpu_torch/bench.py's")
     native = native_build()
     if native is None:
         fail("g++ not found: the port's C++ scene builders need it")
@@ -2165,6 +2250,9 @@ def main() -> None:
     upload_line(st_up.trees[0], "bistro_standin SceneData")
     del st_up, app_out
     lap("standin")
+    bench_phase(st_scene.loaded, st["load_s"])
+    torch.cuda.empty_cache()
+    lap("bench")
     # the options on the same frame, against it
     op_rows = options_phase(st, st_scene.loaded)
     del st, st_scene
@@ -2280,6 +2368,8 @@ def main() -> None:
     lap("synthetic")
     golden_phase()
     lap("goldens")
+    entry_phase()
+    lap("entry")
     reference_phase()
     lap("reference")
 

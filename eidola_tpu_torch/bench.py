@@ -1,0 +1,358 @@
+"""Headline benchmark of the port (counterpart of the repo's bench.py).
+
+    python -m eidola_tpu_torch.bench
+    EIDOLA_BENCH_SCENE=bistro_flat python -m eidola_tpu_torch.bench
+
+renders the default frame (ReSTIR DI + GI, a-trous denoise; max_depth 4,
+the alpha HitTest on when the scene has an alpha-tested material, the
+.hdr environment when it has one) of EIDOLA_BENCH_SCENE (bistro_standin
+by default; bistro_flat, bistro_hdr, stress with n=16, or any registry
+name) at 1920x1080 on one CUDA card, and prints, last, one JSON line.
+In order:
+
+1. the card: its name and count from torch, its power limit from
+   `nvidia-smi` (a failure of nvidia-smi fails the bench).  With no card
+   the line has "value": -1 and an "error", nothing is rendered, and the
+   exit code is 1; nothing falls back to the CPU.  `--device cpu` is for
+   the tests: its line says "platform": "cpu" and holds no device metric
+   (busy share, peak memory and power limit are null);
+2. the scene load, synced, as `load_s` (it carries the g++ build of the
+   port's native scene builders when `_build/` is empty);
+3. correctness before timing: the golden config (cornell 64x64,
+   max_depth 2, traversal_max_steps 1024, 4 frames) on the same device
+   against tests/golden/cornell_64_d2_f4.npy, mean abs below 0.02
+   (`golden_mean_abs`, `correct`); on a failure the line is printed and
+   the exit code is 1.  Its seconds, `golden_s`, are setup: they carry
+   the nvcc build of the kernels the frame launches when `_build/` is
+   empty;
+4. timing, tracing off: `--warmup` frames (the first, `first_frame_ms`,
+   carries the CUDA context's and the allocator's first use at the
+   frame's size and is setup, never in `value`), then `--iters` frames, each timed on the host clock around a
+   step that ends in torch.cuda.synchronize().  `value` is their median;
+   `frames` holds n, mean, min, max, p25, p75, the tail (the highest
+   percentile with at least ten frames beyond it, null under 11 frames)
+   and every frame's ms.  The queue march syncs once a lap inside each
+   frame, so the per-frame sync hides little overlap.  Also the walk and
+   drain kernels' launches per timed frame (ops/bvh_walk.py, bvh_fused.py,
+   bvh_mxu.py counters, read before and after the timed frames and never
+   set to 0 here; on the card's default traversal, walks and no drain,
+   else the bench fails) and the peak memory allocated since the load;
+5. per layer, in frames of their own after the timed ones: the stage
+   split (4 frames under utils/profiler.StageTimer), the
+   busy share (an estimate: the kernel ms of one frame under
+   torch.profiler over the unprofiled timed median; CUPTI may lengthen
+   the traced kernels, which would raise it; `profiled_frame` names the
+   top kernels), the rays
+   (one steady frame under EIDOLA_COUNT_RAYS=1: sum(ops/packets.
+   RAY_LEDGER), "measured"; EIDOLA_BENCH_RAYCOUNT=0 gives bench.py's
+   modeled count instead; a count of 0 fails the bench) and, with
+   EIDOLA_BENCH_BREAKDOWN set, `breakdown_ms` by ablation (direct,
+   indirect, denoise_compose), each config timed as in 4.
+
+`metric` stays fixed (restir_di_gi_denoise_1080p_ms at 1920x1080, the
+height in the name at another size); the triangle count and the card
+are fields of their own.  `vs_baseline` is 18.2 ms (the reference's
+frame on Bistro Exterior, BASELINE.md) over `value`.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .app.headless import _sync, alpha_geometry, set_numerics
+from .models.scenes import load_scene
+from .ops import bvh_fused, bvh_mxu, bvh_walk
+from .ops import packets
+from .ops.packets import resolve_trav
+from .render.config import RenderConfig, default_params, default_tonemap
+from .render.frame import init_frame_state, make_step
+from .utils.profiler import MilliTimer, StageTimer, trace
+
+BASELINE_MS = 18.2
+W, H = 1920, 1080
+WARMUP = 2
+ITERS = 40
+STAGE_FRAMES = 4
+UNIT = "ms/frame"
+TAIL_BEYOND = 10          # frames a reported tail percentile leaves above it
+GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tests", "golden", "cornell_64_d2_f4.npy")
+GOLDEN_BOUND = 0.02       # mean abs, tests/test_golden.py's bound
+WALKS = ("walk_closest", "walk_any")
+DRAINS = ("mt_fused", "mt_any_fused")
+MXU = ("mt_mxu",)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="eidola_tpu_torch.bench",
+        description="the port's headline frame benchmark (one JSON line)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default); cpu only for the tests")
+    p.add_argument("--scene", default=None,
+                   help="overrides EIDOLA_BENCH_SCENE (default "
+                        "bistro_standin)")
+    p.add_argument("--size", type=int, nargs=2, default=[W, H],
+                   metavar=("WIDTH", "HEIGHT"))
+    p.add_argument("--warmup", type=int, default=WARMUP)
+    p.add_argument("--iters", type=int, default=ITERS)
+    return p
+
+
+def metric_name(height: int) -> str:
+    return f"restir_di_gi_denoise_{height}p_ms"
+
+
+def modeled_rays(width: int, height: int, max_depth: int) -> int:
+    """bench.py's modeled rays a frame: 1 primary + 1 DI shadow a pixel;
+    GI at a quarter of the pixels traces a bsdf ray, its NEE shadow and a
+    continuation, plus the deep tiles' bounces."""
+    n_pix = width * height
+    n_half = n_pix // 4
+    deep = (n_half // 4) * 2 * max(max_depth - 1, 0)
+    return n_pix * 2 + n_half * 3 + deep
+
+
+def summarize(ms) -> dict:
+    """n, median, mean, min, max, p25, p75 and the tail: the highest
+    percentile with TAIL_BEYOND samples beyond it (p75 at 40 samples),
+    null under TAIL_BEYOND + 1 samples."""
+    x = np.asarray(ms, dtype=np.float64)
+    n = x.size
+    tail = 100.0 * (n - TAIL_BEYOND) / n if n > TAIL_BEYOND else None
+    return {"n": n, "median": float(np.median(x)), "mean": float(x.mean()),
+            "min": float(x.min()), "max": float(x.max()),
+            "p25": float(np.percentile(x, 25)),
+            "p75": float(np.percentile(x, 75)),
+            "tail_pct": tail,
+            "tail_ms": None if tail is None else float(np.percentile(x, tail)),
+            "frame_ms": [float(v) for v in x]}
+
+
+def card(device: torch.device) -> dict:
+    """{platform, name, power_limit_w, count} of `device`; on the card the
+    power limit comes from nvidia-smi, whose failure raises."""
+    if device.type != "cuda":
+        return {"platform": device.type, "name": device.type,
+                "power_limit_w": None, "count": 0}
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    smi = out.stdout.strip().splitlines()[idx]
+    return {"platform": "gpu", "name": torch.cuda.get_device_name(idx),
+            "power_limit_w": parse_power_limit(smi),
+            "count": torch.cuda.device_count(), "nvidia_smi": smi}
+
+
+def parse_power_limit(smi_line: str) -> float:
+    """"NVIDIA H100 80GB HBM3, 700.00 W" -> 700.0."""
+    return float(smi_line.rsplit(",", 1)[1].strip().split()[0])
+
+
+def reset_launches() -> None:
+    for m in (bvh_fused, bvh_mxu, bvh_walk):
+        m.reset_launches()
+
+
+def read_launches() -> dict:
+    out = {**bvh_walk.LAUNCHES, **bvh_fused.LAUNCHES, **bvh_mxu.LAUNCHES}
+    out.update({f"{k}_instanced": v for k, v in bvh_walk.INST_LAUNCHES.items()})
+    return out
+
+
+def golden_error(device) -> float:
+    """Mean abs of the golden config's linear HDR on `device` against the
+    stored golden GOLDEN (inf on a shape mismatch or a non-finite
+    image)."""
+    cfg = RenderConfig(width=64, height=64, max_depth=2,
+                       traversal_max_steps=1024, env_mode="sunsky")
+    scene, cam = load_scene("cornell", device=device)
+    params, tm = default_params(device=device), default_tonemap(device=device)
+    state, step = init_frame_state(cfg, cam), make_step(cfg)
+    for _ in range(4):
+        state, out = step(scene, cam, params, tm, state)
+    img = out["hdr"].cpu().numpy()
+    ref = np.load(GOLDEN)
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        return float("inf")
+    return float(np.abs(img - ref).mean())
+
+
+def frame_cfg(scene, width: int, height: int) -> RenderConfig:
+    """bench.py's config: maxDepth 4, the .hdr env when the scene has one,
+    the HitTest when it has an alpha-tested material."""
+    return RenderConfig(width=width, height=height, max_depth=4,
+                        env_mode="hdr" if scene.env is not None else "sunsky",
+                        alpha_geometry=alpha_geometry(scene))
+
+
+def time_frames(cfg, scene, cam, params, tm, device, warmup: int,
+                iters: int):
+    """(state, outputs, first frame ms, timed frames' ms, the timed
+    frames' launches by kernel): a fresh state, `warmup` frames, then
+    `iters` frames each timed on the host clock around a synced step."""
+    state, step = init_frame_state(cfg, cam), make_step(cfg)
+    first_ms, frame_ms = None, []
+    for i in range(warmup + iters):
+        if i == warmup:
+            before = read_launches()
+        t0 = time.perf_counter()
+        state, out = step(scene, cam, params, tm, state)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        if i == 0:
+            first_ms = ms
+        if i >= warmup:
+            frame_ms.append(ms)
+    after = read_launches()
+    return state, out, first_ms, frame_ms, {k: after[k] - before[k]
+                                            for k in after}
+
+
+def _check_launches(trav: str, per_frame: dict) -> None:
+    """On the card the default traversal launches the walk kernels and
+    no drain; the torch walk (xla) launches drains and no walk."""
+    walks = sum(per_frame[k] for k in WALKS)
+    drains = sum(per_frame[k] for k in DRAINS + MXU)
+    if trav == "pallas" and not (walks > 0 and drains == 0):
+        raise RuntimeError(f"bench: the walk traversal launched {per_frame}")
+    if trav == "xla" and not (walks == 0 and drains > 0):
+        raise RuntimeError(f"bench: the torch walk launched {per_frame}")
+
+
+def count_rays(step, scene, cam, params, tm, state, device) -> float:
+    """Live rays of one steady frame by the ray ledger (its syncs stay
+    out of the timed frames); raises when nothing was counted."""
+    was = os.environ.get("EIDOLA_COUNT_RAYS")
+    os.environ["EIDOLA_COUNT_RAYS"] = "1"
+    try:
+        packets.RAY_LEDGER.clear()
+        packets.RAY_DOORS.clear()
+        step(scene, cam, params, tm, state)
+        _sync(device)
+    finally:
+        if was is None:
+            os.environ.pop("EIDOLA_COUNT_RAYS")
+        else:
+            os.environ["EIDOLA_COUNT_RAYS"] = was
+    rays = sum(packets.RAY_LEDGER)
+    if not rays > 0:
+        raise RuntimeError("bench: the ray ledger counted no rays")
+    return rays
+
+
+def measure(scene, cam, device, name: str, *, width: int = W,
+            height: int = H, warmup: int = WARMUP, iters: int = ITERS,
+            load_s=None) -> dict:
+    """The bench on a loaded (scene, cam): the result dict of the JSON
+    line.  Without `correct` the dict holds no timing."""
+    device = torch.device(device)
+    if iters < 1 or warmup < 1:
+        raise ValueError("bench: warmup and iters must be >= 1")
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    cfg = frame_cfg(scene, width, height)
+    out = {"metric": metric_name(height), "unit": UNIT, "scene": name,
+           "n_tris": int(scene.bvh.n_tris), "width": width, "height": height,
+           "alpha_geometry": cfg.alpha_geometry, "env_mode": cfg.env_mode,
+           "device": card(device), "trav": resolve_trav(device),
+           "load_s": load_s}
+    t0 = time.perf_counter()
+    err = golden_error(device)
+    out.update(golden_s=time.perf_counter() - t0, golden_mean_abs=err,
+               correct=err < GOLDEN_BOUND)
+    if not out["correct"]:
+        return dict(out, value=-1, vs_baseline=0.0,
+                    error=f"golden mean abs {err} >= {GOLDEN_BOUND}: not "
+                          f"timed")
+
+    params, tm = default_params(device=device), default_tonemap(device=device)
+    state, outputs, first_ms, frame_ms, launches = time_frames(
+        cfg, scene, cam, params, tm, device, warmup, iters)
+    per_frame = {k: v / iters for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None
+    finite = bool(torch.isfinite(outputs["image"]).all())
+    frames = summarize(frame_ms)
+    ms = frames["median"]
+    if cuda:
+        _check_launches(out["trav"], per_frame)
+
+    step = make_step(cfg)
+    timer = StageTimer(device)
+    for _ in range(STAGE_FRAMES):
+        state, _ = step(scene, cam, params, tm, state, timer=timer)
+    stage_ms = {k: v / STAGE_FRAMES for k, v in timer.summary().items()}
+
+    profiled = busy = None
+    if cuda:
+        profiled = trace(lambda: step(scene, cam, params, tm, state), None,
+                         device, top=8)
+        busy = profiled["kernel_ms"] / ms
+
+    if os.environ.get("EIDOLA_BENCH_RAYCOUNT", "1") == "1":
+        rays = count_rays(step, scene, cam, params, tm, state, device)
+        method = "measured: live-lane traversal counters"
+    else:
+        rays = modeled_rays(width, height, cfg.max_depth)
+        method = "modeled"
+
+    out.update(
+        value=ms, vs_baseline=BASELINE_MS / ms,
+        mrays_per_s=rays / ms / 1e3, mrays_method=method,
+        rays_per_frame=rays, correct=out["correct"] and finite,
+        image_finite=finite, first_frame_ms=first_ms, frames=frames,
+        peak_mem_gib=peak, launches_per_frame=per_frame,
+        stage_frames=STAGE_FRAMES, stage_ms=stage_ms,
+        steady_busy_share=busy, profiled_frame=profiled)
+    if os.environ.get("EIDOLA_BENCH_BREAKDOWN"):
+        def median(c):
+            return summarize(time_frames(c, scene, cam, params, tm, device,
+                                         warmup, iters)[3])["median"]
+
+        no_dn = median(dataclasses.replace(cfg, denoise=False))
+        di_only = median(dataclasses.replace(cfg, denoise=False,
+                                             indirect_enabled=False))
+        out["breakdown_ms"] = {"direct": di_only, "indirect": no_dn - di_only,
+                               "denoise_compose": ms - no_dn}
+    return out
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    device = torch.device(args.device)
+    width, height = args.size
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(json.dumps({
+            "metric": metric_name(height), "value": -1, "unit": UNIT,
+            "vs_baseline": 0.0,
+            "error": "no CUDA device (torch.cuda.is_available() is false): "
+                     "nothing rendered, no measurement"}), flush=True)
+        return 1
+    name = args.scene or os.environ.get("EIDOLA_BENCH_SCENE",
+                                        "bistro_standin")
+    set_numerics()
+    load = MilliTimer()
+    scene, cam = load_scene(name, device=device, **(
+        {"n": 16} if name == "stress" else {}))
+    _sync(device)
+    load_s = load.ms() / 1e3
+    result = measure(scene, cam, device, name, width=width, height=height,
+                     warmup=args.warmup, iters=args.iters, load_s=load_s)
+    print(json.dumps(result), flush=True)
+    return 0 if result["correct"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -46,11 +46,13 @@ MT_FLOP = 53
 XFORM_FLOP = 33
 
 LAUNCHES = {"walk_closest": 0, "walk_any": 0}
+# the launches among LAUNCHES that walked an instanced BVH
+INST_LAUNCHES = {"walk_closest": 0, "walk_any": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = INST_LAUNCHES[k] = 0
 
 
 def pack_rays(o, d, t_min, t_max, multiple: int = PACKET):
@@ -306,6 +308,7 @@ def _walk(name, walk, leaf_blocks, rays, max_steps, stats, inst):
                            inst)
     launch()
     LAUNCHES[name] += 1
+    INST_LAUNCHES[name] += inst is not None
     return out
 
 

@@ -17,7 +17,7 @@
   (render/indirect.py), denoise and compose_post (render/frame.py), so
   the stages cover the whole frame.
 - `trace(fn, out_dir, device)` runs `fn` once under torch.profiler, writes
-  a Chrome trace and returns the wall time, the summed kernel time and
+  a Chrome trace into `out_dir` (none when it is None) and returns the wall time, the summed kernel time and
   the kernels that took the most device time.
 """
 from __future__ import annotations
@@ -168,8 +168,9 @@ def trace(fn, out_dir: str, device, top: int = 12) -> dict:
         if cuda:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
     # kernels only: an op's device time repeats the time of its kernels
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()

@@ -536,3 +536,43 @@ def test_batched_device_put_on_the_card(cuda, monkeypatch):
         assert a.data_ptr() % TT.ALIGN == 0
         assert torch.equal(_bits(a), _bits(b))
     assert 1 <= copies <= len(dtypes)
+
+
+@pytest.mark.cuda
+def test_bench_on_the_card(cuda):
+    """The bench at a small size on the card: instanced and alpha walks
+    through the walk kernels, no drain, the golden held, the device
+    metrics filled in."""
+    import contextlib
+    import io
+    import json
+
+    from eidola_tpu_torch import bench
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--scene", "mini_grove", "--size", "64", "64",
+                         "--warmup", "1", "--iters", "2"])
+    out = json.loads(buf.getvalue().splitlines()[-1])
+    assert rc == 0 and out["correct"] is True, out
+    assert out["device"]["platform"] == "gpu"
+    assert out["device"]["power_limit_w"] > 0 and out["device"]["count"] >= 1
+    per = out["launches_per_frame"]
+    assert per["walk_closest_instanced"] > 0 and per["walk_any"] > 0
+    assert per["walk_closest"] > per["walk_closest_instanced"]   # alpha BVH
+    assert per["mt_fused"] == per["mt_any_fused"] == per["mt_mxu"] == 0
+    assert out["peak_mem_gib"] > 0 and out["steady_busy_share"] > 0
+    assert out["mrays_method"].startswith("measured")
+
+
+@pytest.mark.cuda
+def test_entry_step_on_the_card(cuda):
+    """entry("cuda")'s step against entry("cpu")'s, the goldens' bound."""
+    from eidola_tpu_torch.entry import entry
+
+    fn, args = entry(cuda)
+    _, got = fn(*args)
+    fn, args = entry("cpu")
+    _, want = fn(*args)
+    assert got.is_cuda and bool(torch.isfinite(got).all())
+    assert float((got.cpu() - want).abs().mean()) < 0.02
