@@ -45,10 +45,12 @@ drains.  In order:
    pinned host memory torch's caching allocator holds after the load;
    then the bench phase: the port's bench (eidola_tpu_torch/bench.py,
    `measure`, what `python -m eidola_tpu_torch.bench` runs) on the scene
-   the standin phase loaded, 1 warm-up and 3 timed frames, the stage
-   split, the profiled frame and the ray frame: its JSON has every
-   field, `correct` true (the cornell golden on the card), the ray count
-   measured, walk launches and no drain, per frame and in the run;
+   the standin phase loaded, 1 warm-up and 3 frames timed as one
+   window, the stage split, the profiled frame and the ray frame: its
+   JSON has every field, `correct` true (the cornell golden on the
+   card), `value` x 3 = the window's ms > 0, three per-frame event times
+   > 0 (the window's ms/frame is printed beside their median), the ray
+   count measured, walk launches and no drain, per frame and in the run;
 7. options phase: the same frame under each of the JAX package's build
    and trace options, the switch in the environment: (s) EIDOLA_SBVH=1,
    (f) EIDOLA_ALPHA_FLAT=0, (c) EIDOLA_ALPHA_CULL=1, (d)
@@ -529,8 +531,19 @@ def bench_phase(loaded, load_s: float) -> None:
     missing = [k for k in BENCH_FIELDS if k not in out]
     if missing:
         fail(f"bench: the JSON lacks {missing}")
-    if out["correct"] is not True or out["frames"]["n"] != 3:
-        fail(f"bench: correct {out['correct']}, {out['frames']['n']} frames")
+    frames = out["frames"]
+    if out["correct"] is not True or frames["n"] != 3:
+        fail(f"bench: correct {out['correct']}, {frames['n']} frames")
+    if not frames["window_ms"] > 0 or \
+            abs(out["value"] * 3 - frames["window_ms"]) > \
+            1e-9 * frames["window_ms"]:
+        fail(f"bench: value {out['value']} x 3 is not the window "
+             f"{frames['window_ms']} ms")
+    if len(frames["frame_ms"]) != 3 or min(frames["frame_ms"]) <= 0:
+        fail(f"bench: per-frame event times {frames['frame_ms']}")
+    print(f"bench: window {out['value']:.1f} ms/frame, the frames' events "
+          f"median {frames['median']:.1f} ms ({frames['frame_ms']})",
+          flush=True)
     if set(out["stage_ms"]) != BENCH_STAGES:
         fail(f"bench: stages {sorted(out['stage_ms'])}")
     if not out["mrays_method"].startswith("measured") or \

@@ -25,34 +25,45 @@ In order:
    the exit code is 1.  Its seconds, `golden_s`, are setup: they carry
    the nvcc build of the kernels the frame launches when `_build/` is
    empty;
-4. timing, tracing off: `--warmup` frames (the first, `first_frame_ms`,
-   carries the CUDA context's and the allocator's first use at the
-   frame's size and is setup, never in `value`), then `--iters` frames, each timed on the host clock around a
-   step that ends in torch.cuda.synchronize().  `value` is their median;
-   `frames` holds n, mean, min, max, p25, p75, the tail (the highest
-   percentile with at least ten frames beyond it, null under 11 frames)
-   and every frame's ms.  The queue march syncs once a lap inside each
-   frame, so the per-frame sync hides little overlap.  Also the walk and
-   drain kernels' launches per timed frame (ops/bvh_walk.py, bvh_fused.py,
-   bvh_mxu.py counters, read before and after the timed frames and never
-   set to 0 here; on the card's default traversal, walks and no drain,
-   else the bench fails) and the peak memory allocated since the load;
+4. timing, tracing off: `--warmup` frames (the first, synced on its
+   own as `first_frame_ms`, carries the CUDA context's and the
+   allocator's first use at the frame's size and is setup, never in
+   `value`), then `--iters` frames timed as one window, as bench.py
+   times its frames: one torch.cuda.synchronize() and the host clock
+   before the window, the frames enqueued with no host sync between
+   them, one synchronize() after it.  `value` is the window's ms over
+   its frames (`frames["window_ms"]` / `--iters`), so the host may
+   dispatch frame k+1 while the card finishes frame k.  The queue
+   march's syncs inside a frame (once a lap) stay: they are the frame's.
+   The spread comes from a CUDA event recorded at each frame boundary
+   inside the window, read after the final sync: device time between
+   two boundaries, idle gaps included (on the CPU, which runs
+   synchronously, the host clock at each boundary).  `frames` holds the
+   window's ms and, over those per-frame times, n, median, mean, min,
+   max, p25, p75, the tail (the highest percentile with at least ten
+   frames beyond it, null under 11 frames) and every frame's ms.  Also
+   the walk and drain kernels' launches per timed frame (ops/bvh_walk.py,
+   bvh_fused.py, bvh_mxu.py counters, read before and after the window
+   and never set to 0 here; on the card's default traversal, walks and
+   no drain, else the bench fails) and the peak memory allocated since
+   the load;
 5. per layer, in frames of their own after the timed ones: the stage
    split (4 frames under utils/profiler.StageTimer), the
    busy share (an estimate: the kernel ms of one frame under
-   torch.profiler over the unprofiled timed median; CUPTI may lengthen
+   torch.profiler over `value`; CUPTI may lengthen
    the traced kernels, which would raise it; `profiled_frame` names the
    top kernels), the rays
    (one steady frame under EIDOLA_COUNT_RAYS=1: sum(ops/packets.
    RAY_LEDGER), "measured"; EIDOLA_BENCH_RAYCOUNT=0 gives bench.py's
    modeled count instead; a count of 0 fails the bench) and, with
    EIDOLA_BENCH_BREAKDOWN set, `breakdown_ms` by ablation (direct,
-   indirect, denoise_compose), each config timed as in 4.
+   indirect, denoise_compose), each config timed as a window as in 4.
 
 `metric` stays fixed (restir_di_gi_denoise_1080p_ms at 1920x1080, the
 height in the name at another size); the triangle count and the card
 are fields of their own.  `vs_baseline` is 18.2 ms (the reference's
-frame on Bistro Exterior, BASELINE.md) over `value`.
+frame on Bistro Exterior, BASELINE.md) over `value`, and `mrays_per_s`
+the counted rays over `value`.
 """
 from __future__ import annotations
 
@@ -199,25 +210,42 @@ def frame_cfg(scene, width: int, height: int) -> RenderConfig:
 
 def time_frames(cfg, scene, cam, params, tm, device, warmup: int,
                 iters: int):
-    """(state, outputs, first frame ms, timed frames' ms, the timed
-    frames' launches by kernel): a fresh state, `warmup` frames, then
-    `iters` frames each timed on the host clock around a synced step."""
+    """(state, outputs, first frame ms, window ms, the window's frames'
+    ms, the window's launches by kernel): a fresh state, `warmup` frames
+    (the first synced and timed alone), then `iters` frames timed as one
+    window: a sync and the host clock before it, none inside it, a sync
+    after it.  Each frame's ms is between two CUDA events recorded at the
+    frame boundaries (on the CPU, two host clock readings)."""
     state, step = init_frame_state(cfg, cam), make_step(cfg)
-    first_ms, frame_ms = None, []
-    for i in range(warmup + iters):
-        if i == warmup:
-            before = read_launches()
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    state, out = step(scene, cam, params, tm, state)
+    _sync(device)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(warmup - 1):
         state, out = step(scene, cam, params, tm, state)
-        _sync(device)
-        ms = (time.perf_counter() - t0) * 1e3
-        if i == 0:
-            first_ms = ms
-        if i >= warmup:
-            frame_ms.append(ms)
+    _sync(device)
+    before = read_launches()
+    cuda = device.type == "cuda"
+
+    def mark():
+        if not cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    t0 = time.perf_counter()
+    marks = [mark()]
+    for _ in range(iters):
+        state, out = step(scene, cam, params, tm, state)
+        marks.append(mark())
+    _sync(device)
+    window_ms = (time.perf_counter() - t0) * 1e3
     after = read_launches()
-    return state, out, first_ms, frame_ms, {k: after[k] - before[k]
-                                            for k in after}
+    frame_ms = [a.elapsed_time(b) if cuda else (b - a) * 1e3
+                for a, b in zip(marks, marks[1:])]
+    return state, out, first_ms, window_ms, frame_ms, {
+        k: after[k] - before[k] for k in after}
 
 
 def _check_launches(trav: str, per_frame: dict) -> None:
@@ -279,13 +307,13 @@ def measure(scene, cam, device, name: str, *, width: int = W,
                           f"timed")
 
     params, tm = default_params(device=device), default_tonemap(device=device)
-    state, outputs, first_ms, frame_ms, launches = time_frames(
+    state, outputs, first_ms, window_ms, frame_ms, launches = time_frames(
         cfg, scene, cam, params, tm, device, warmup, iters)
     per_frame = {k: v / iters for k, v in launches.items()}
     peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None
     finite = bool(torch.isfinite(outputs["image"]).all())
-    frames = summarize(frame_ms)
-    ms = frames["median"]
+    frames = dict(summarize(frame_ms), window_ms=window_ms)
+    ms = window_ms / iters
     if cuda:
         _check_launches(out["trav"], per_frame)
 
@@ -317,12 +345,12 @@ def measure(scene, cam, device, name: str, *, width: int = W,
         stage_frames=STAGE_FRAMES, stage_ms=stage_ms,
         steady_busy_share=busy, profiled_frame=profiled)
     if os.environ.get("EIDOLA_BENCH_BREAKDOWN"):
-        def median(c):
-            return summarize(time_frames(c, scene, cam, params, tm, device,
-                                         warmup, iters)[3])["median"]
+        def window(c):
+            return time_frames(c, scene, cam, params, tm, device, warmup,
+                               iters)[3] / iters
 
-        no_dn = median(dataclasses.replace(cfg, denoise=False))
-        di_only = median(dataclasses.replace(cfg, denoise=False,
+        no_dn = window(dataclasses.replace(cfg, denoise=False))
+        di_only = window(dataclasses.replace(cfg, denoise=False,
                                              indirect_enabled=False))
         out["breakdown_ms"] = {"direct": di_only, "indirect": no_dn - di_only,
                                "denoise_compose": ms - no_dn}

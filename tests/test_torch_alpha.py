@@ -3,7 +3,9 @@ split (scene/data.py) against the JAX package's.
 
 - The scenes `alpha` (a flat scene whose MASK screen splits off) and
   `mini_grove` (instanced trees whose MASK leaf cards split into a flat
-  world-space alpha BVH) equal the JAX-built arrays bit for bit.
+  world-space alpha BVH) equal the JAX-built arrays bit for bit, the port
+  on the host builder the JAX side took (`host_builders_like_jax`), and
+  again with the JAX package's native library forced off.
 - `_surface_opacity` and `_alpha_passthrough` on the same hit records and
   rng words in both packages.
 - Alpha `trace_closest` and `trace_occlusion` against JAX's on both
@@ -41,6 +43,7 @@ from eidola_tpu_torch.ops import rng as trng
 from eidola_tpu_torch.render import tracer as TT
 from eidola_tpu_torch.render.config import RenderConfig
 from eidola_tpu_torch.scene import data as TD
+from test_torch_foundations import host_builders_like_jax, jax_native_off
 from test_torch_instanced import _compare_tree
 
 torch.set_num_threads(2)
@@ -49,12 +52,20 @@ SCENES = {"alpha": ("alpha_demo", [0.0, 1.2, 0.0], 1.6),
           "mini_grove": ("mini_grove", [0.0, 1.8, 0.0], 3.0)}
 
 
+def _build_both(key):
+    """(JAX scene, port scene) of SCENES[key], each built by its package
+    (the port on the builder the JAX side took)."""
+    name = SCENES[key][0]
+    js, _ = getattr(JS, name)()
+    with host_builders_like_jax():
+        ts, _ = getattr(TS, name)(device=CPU)
+    return js, ts
+
+
 @pytest.fixture(scope="module", params=sorted(SCENES))
 def pair(request):
-    name, center, spread = SCENES[request.param]
-    js, _ = getattr(JS, name)()
-    ts, _ = getattr(TS, name)(device=CPU)
-    return request.param, js, ts, center, spread
+    _, center, spread = SCENES[request.param]
+    return request.param, *_build_both(request.param), center, spread
 
 
 def _rays(center, spread, n=256, seed=3):
@@ -71,7 +82,18 @@ def _rays(center, spread, n=256, seed=3):
 
 
 def test_split_scene_matches_jax(pair):
-    name, js, ts, _, _ = pair
+    _check_split(*pair[:3])
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_split_scene_matches_jax_native_off(name, monkeypatch):
+    """The JAX side on its numpy builders (its library forced off), as
+    when its g++ build races another test worker: the port follows it."""
+    jax_native_off(monkeypatch)
+    _check_split(name, *_build_both(name))
+
+
+def _check_split(name, js, ts):
     assert ts.bvh_alpha is not None and js.bvh_alpha is not None
     assert isinstance(ts.bvh_alpha, TB.BVH)           # the flat alpha BVH
     assert (ts.inst is not None) == (name == "mini_grove")

@@ -15,7 +15,12 @@ at cornell 32x32 with 1 warm-up and 3 timed frames:
   test_torch_options.py::test_ray_ledger_matches_jax), and
   EIDOLA_BENCH_RAYCOUNT=0 gives bench.py's modeled count (6,480,000 at
   1920x1080, depth 4: bench.py:133-137); EIDOLA_BENCH_BREAKDOWN adds
-  bench.py's ablation, whose parts sum to the median;
+  bench.py's ablation, whose parts sum to `value`, each config timed as
+  a window;
+- `value` is the timed window's ms over its frames, as bench.py takes
+  it: one host sync before the window, none inside it, one after it;
+  `frames["window_ms"]` is the window, and Mrays/s and vs_baseline
+  divide by `value`;
 - the golden check passes on tests/golden/cornell_64_d2_f4.npy and fails,
   exit 1, nothing timed, against a copy shifted by 0.05;
 - the frames' summary: median, p25, p75 and the tail (the highest
@@ -51,7 +56,7 @@ FIELDS = {"metric", "value", "unit", "vs_baseline", "mrays_per_s",
           "peak_mem_gib", "launches_per_frame", "stage_ms",
           "steady_busy_share", "golden_s", "golden_mean_abs", "correct"}
 FRAME_FIELDS = {"n", "median", "mean", "min", "max", "p25", "p75",
-                "tail_pct", "tail_ms", "frame_ms"}
+                "tail_pct", "tail_ms", "frame_ms", "window_ms"}
 
 
 def _run(argv):
@@ -90,7 +95,7 @@ def test_bench_prints_one_json_line_last(small):
     frames = out["frames"]
     assert set(frames) == FRAME_FIELDS and frames["n"] == 3
     assert len(frames["frame_ms"]) == 3 and frames["tail_pct"] is None
-    assert out["value"] == frames["median"] > 0
+    assert out["value"] == frames["window_ms"] / frames["n"] > 0
     assert out["vs_baseline"] == pytest.approx(18.2 / out["value"])
     assert out["first_frame_ms"] > 0 and out["load_s"] > 0
     # no device metric from a CPU run
@@ -111,6 +116,44 @@ def test_bench_measured_rays_are_the_ledger(small):
         sum(ledger) / out["value"] / 1e3)
 
 
+def test_bench_rates_divide_by_the_window(small):
+    """Mrays/s and vs_baseline come from `value`, the window's ms/frame."""
+    out = small[2][0]
+    assert out["mrays_per_s"] * out["value"] == pytest.approx(
+        out["rays_per_frame"] / 1e3)
+    assert out["vs_baseline"] * out["value"] == pytest.approx(18.2)
+    assert out["value"] * out["frames"]["n"] == pytest.approx(
+        out["frames"]["window_ms"])
+
+
+def test_time_frames_syncs_once_around_the_window(monkeypatch):
+    """The first warm-up frame is synced alone; the window has one sync
+    before it and one after it, none between its frames."""
+    events = []
+    real_step = bench.make_step
+
+    def make_step(cfg):
+        step = real_step(cfg)
+
+        def counted(*args, **kw):
+            events.append("frame")
+            return step(*args, **kw)
+        return counted
+
+    monkeypatch.setattr(bench, "make_step", make_step)
+    monkeypatch.setattr(bench, "_sync", lambda device: events.append("sync"))
+    scene, cam = bench.load_scene("cornell", device="cpu")
+    cfg = bench.frame_cfg(scene, 16, 16)
+    params = bench.default_params(device="cpu")
+    tm = bench.default_tonemap(device="cpu")
+    _, _, first, window, frame_ms, _ = bench.time_frames(
+        cfg, scene, cam, params, tm, torch.device("cpu"), 2, 4)
+    assert events == ["frame", "sync", "frame", "sync"] + ["frame"] * 4 + [
+        "sync"]
+    assert first > 0 and len(frame_ms) == 4 and min(frame_ms) > 0
+    assert sum(frame_ms) <= window
+
+
 def test_bench_modeled_count():
     assert bench.modeled_rays(1920, 1080, 4) == 6_480_000
     assert bench.metric_name(1080) == "restir_di_gi_denoise_1080p_ms"
@@ -127,7 +170,7 @@ def test_bench_raycount_off_is_modeled(monkeypatch):
 
 def test_bench_breakdown_by_ablation(monkeypatch):
     """EIDOLA_BENCH_BREAKDOWN: bench.py's ablation, its three parts summing
-    to the headline median."""
+    to the headline `value`."""
     monkeypatch.setenv("EIDOLA_BENCH_BREAKDOWN", "1")
     rc, _, objs = _run(SMALL[:-1] + ["1"])
     assert rc == 0 and len(objs) == 1
@@ -136,6 +179,34 @@ def test_bench_breakdown_by_ablation(monkeypatch):
     assert set(parts) == {"direct", "indirect", "denoise_compose"}
     assert parts["direct"] > 0
     assert sum(parts.values()) == pytest.approx(out["value"])
+
+
+def test_bench_breakdown_parts_are_windows(monkeypatch):
+    """Each ablated config is timed as a window, as the headline is: its
+    part is a window's ms over its frames, not a median of frames."""
+    windows = []
+    real = bench.time_frames
+
+    def spy(cfg, *args):
+        got = real(cfg, *args)
+        windows.append((cfg, got[3], got[4]))
+        return got
+
+    monkeypatch.setattr(bench, "time_frames", spy)
+    monkeypatch.setenv("EIDOLA_BENCH_BREAKDOWN", "1")
+    iters = 3
+    rc, _, objs = _run(SMALL)
+    assert rc == 0 and len(objs) == 1
+    out, parts = objs[0], objs[0]["breakdown_ms"]
+    (full, w_full, f_full), (no_dn, w_no_dn, _), (di, w_di, _) = windows
+    assert (full.denoise, no_dn.denoise, no_dn.indirect_enabled) == (
+        True, False, True)
+    assert (di.denoise, di.indirect_enabled) == (False, False)
+    assert out["value"] == w_full / iters
+    assert out["frames"]["frame_ms"] == f_full
+    assert parts["direct"] == w_di / iters
+    assert parts["indirect"] == w_no_dn / iters - w_di / iters
+    assert parts["denoise_compose"] == w_full / iters - w_no_dn / iters
 
 
 def test_bench_golden_check(small, tmp_path, monkeypatch):

@@ -22,6 +22,7 @@ from eidola_tpu_torch import interop
 from eidola_tpu_torch.ops import bvh as tb
 from eidola_tpu_torch.ops.packets import (any_hit_img, closest_hit_img,
                                           from_tiles, to_tiles)
+from test_torch_foundations import same_host_builders
 
 torch.set_num_threads(2)
 
@@ -132,7 +133,8 @@ def test_image_front_doors_match_flat_traversal():
     assert torch.equal(occ, rec.tri >= 0)
 
 
-def test_port_build_equals_jax_build():
+def test_port_build_equals_jax_build(monkeypatch):
+    same_host_builders(monkeypatch)
     (a, b, c), _, _, jbvh, tbvh = _both("random_500")
     own = tb.build_bvh(a, b, c, device="cpu")
     for k in tb.BVH._fields:

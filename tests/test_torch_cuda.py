@@ -566,6 +566,25 @@ def test_bench_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_bench_frame_events_fill_the_window(cuda):
+    """The bench's timed window on the card: the CUDA events at its frame
+    boundaries sum to within 5% of the window's host-clock ms."""
+    from eidola_tpu_torch import bench
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.render.config import (default_params,
+                                                default_tonemap)
+
+    scene, cam = load_scene("mini_grove", device=cuda)
+    cfg = bench.frame_cfg(scene, 64, 64)
+    _, out, first, window, frame_ms, _ = bench.time_frames(
+        cfg, scene, cam, default_params(device=cuda),
+        default_tonemap(device=cuda), cuda, 1, 4)
+    assert bool(torch.isfinite(out["image"]).all())
+    assert first > 0 and len(frame_ms) == 4 and min(frame_ms) > 0
+    assert abs(sum(frame_ms) - window) <= 0.05 * window, (frame_ms, window)
+
+
+@pytest.mark.cuda
 def test_entry_step_on_the_card(cuda):
     """entry("cuda")'s step against entry("cpu")'s, the goldens' bound."""
     from eidola_tpu_torch.entry import entry

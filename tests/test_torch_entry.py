@@ -43,14 +43,16 @@ def test_entry_step_is_render_frame():
     assert bool(torch.isfinite(image).all())
 
 
-def test_entry_step_matches_jax():
+def test_entry_step_matches_jax(monkeypatch):
     import jax
 
     from eidola_tpu.models.scenes import cornell_box
     from eidola_tpu.render import config as jcfg
     from eidola_tpu.render.frame import init_frame_state as j_init
     from eidola_tpu.render.frame import make_step as j_make_step
+    from test_torch_foundations import same_host_builders
 
+    same_host_builders(monkeypatch)
     cfg = jcfg.RenderConfig(**ENTRY_CFG)
     scene, cam = cornell_box()
     _, out = j_make_step(cfg)(scene, cam, jcfg.default_params(),

@@ -8,6 +8,8 @@ torch): math, tonemap, reservoirs, BSDF, sun & sky, camera rays,
 get_state, light sampling, compose and post (whose dither words are
 bit-exact through the RNG).
 """
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -251,6 +253,16 @@ def same_host_builders(monkeypatch):
     if j_native.get_lib() is None:
         monkeypatch.setattr(t_native, "_lib", None)
         monkeypatch.setattr(t_native, "_tried", True)
+
+
+@contextlib.contextmanager
+def host_builders_like_jax():
+    """`same_host_builders` as a context, for module-scoped fixtures,
+    which cannot take `monkeypatch`: the port's builds inside it take the
+    JAX side's builder."""
+    with pytest.MonkeyPatch.context() as mp:
+        same_host_builders(mp)
+        yield
 
 
 def jax_native_off(monkeypatch):

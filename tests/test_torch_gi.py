@@ -45,6 +45,7 @@ from eidola_tpu_torch.render.pathtrace import light_pdf_for_bsdf_dir
 from eidola_tpu_torch.render.tracer import nee_contribution, trace_radiance
 from eidola_tpu_torch.scene import hdr as TH
 from test_torch_bvh import _random_rays, _random_tris
+from test_torch_foundations import same_host_builders
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -172,7 +173,8 @@ def hdr_scene():
     return scene, cam, _t(scene)
 
 
-def test_build_env_map_matches(hdr_scene):
+def test_build_env_map_matches(hdr_scene, monkeypatch):
+    same_host_builders(monkeypatch)
     scene, _, tscene = hdr_scene
     img = np.asarray(scene.env.image)
     env = TH.build_env_map(img, device=CPU)

@@ -58,6 +58,7 @@ from eidola_tpu_torch.ops import packets as TPK
 from eidola_tpu_torch.render import pathtrace as TP
 from eidola_tpu_torch.render import shade_state as TSS
 from eidola_tpu_torch.render import tracer as TT
+from test_torch_foundations import host_builders_like_jax, same_host_builders
 from eidola_tpu_torch.render.config import RenderConfig, default_params
 from eidola_tpu_torch.scene import data as TD
 
@@ -137,7 +138,9 @@ def _compare_tree(port, ref, path=""):
 @pytest.fixture(scope="module")
 def built():
     j = JI.build_instanced_bvh(MESHES, INSTANCES, leaf_size=8)
-    t = TI.build_instanced_bvh(MESHES, INSTANCES, device=CPU, leaf_size=8)
+    with host_builders_like_jax():
+        t = TI.build_instanced_bvh(MESHES, INSTANCES, device=CPU,
+                                   leaf_size=8)
     return j, t
 
 
@@ -148,9 +151,10 @@ def test_build_matches_jax_bitwise(built):
     _compare_tree(interop.to_numpy(t), j)
 
 
-def test_subset_build_matches_jax_bitwise():
+def test_subset_build_matches_jax_bitwise(monkeypatch):
     """The opaque half of a split: mesh-local subsets, ids in the full
     numbering."""
+    same_host_builders(monkeypatch)
     ids = [np.arange(0, 150, 3, dtype=np.int32),
            np.arange(1, 90, 2, dtype=np.int32)]
     meshes = [tuple(v[i] for v in m) for m, i in zip(MESHES, ids)]
@@ -175,6 +179,7 @@ def _rays(n=640, seed=5):
 
 
 def test_instanced_hits_match_jax_and_flat(built, monkeypatch):
+    same_host_builders(monkeypatch)
     j, t = built
     # the default traversal: the instanced torch walk of ops/bvh.py
     monkeypatch.setattr(TPK, "TRAV", "xla")

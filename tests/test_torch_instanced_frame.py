@@ -33,6 +33,7 @@ from eidola_tpu_torch.ops import packets as P
 from eidola_tpu_torch.render.config import (RenderConfig, default_params,
                                             default_tonemap)
 from eidola_tpu_torch.render.frame import init_frame_state, make_step
+from test_torch_foundations import host_builders_like_jax
 
 torch.set_num_threads(2)
 
@@ -43,7 +44,8 @@ FRAMES = 4
 
 def _render_port():
     dev = torch.device("cpu")
-    scene, cam = load_scene("mini_grove", device=dev)
+    with host_builders_like_jax():
+        scene, cam = load_scene("mini_grove", device=dev)
     cfg = RenderConfig(**CFG)
     params, tm = default_params(device=dev), default_tonemap(device=dev)
     state = init_frame_state(cfg, cam)
@@ -154,7 +156,8 @@ def orbit_frames():
                          jcfg.default_params(), jcfg.default_tonemap(),
                          j_init(cfg, cam), np.asarray)}
     dev = torch.device("cpu")
-    tscene, tcam = load_scene("mini_grove", device=dev)
+    with host_builders_like_jax():
+        tscene, tcam = load_scene("mini_grove", device=dev)
     tcfg = RenderConfig(**CFG)
     for trav in ("xla", "pallas"):
         P.TRAV = trav

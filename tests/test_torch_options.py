@@ -149,7 +149,8 @@ def _hits(bvh, o, d, tmin, tmax):
 
 
 @pytest.mark.parametrize("soup", ["random_600", "leaf_cards"])
-def test_sbvh_hits_match_jax_and_sah(soup):
+def test_sbvh_hits_match_jax_and_sah(soup, monkeypatch):
+    same_host_builders(monkeypatch)
     v0, v1, v2 = SOUPS[soup]()
     n = 1024
     o, d = _random_rays(n, 32)
@@ -701,6 +702,7 @@ def test_import_switches_match_jax():
 
 
 def test_octant_off_builds_like_jax(monkeypatch):
+    same_host_builders(monkeypatch)
     v0, v1, v2 = _random_tris(300, 35)
     want = JB.build_bvh(v0, v1, v2, leaf_size=8, as_numpy=True,
                         octant=False)

@@ -158,9 +158,11 @@ def _sort_case():
     import eidola_tpu.models.scenes as JS
 
     from eidola_tpu_torch.models import scenes as TS
+    from test_torch_foundations import host_builders_like_jax
 
     js, _ = JS.stress_grid(2)
-    ts, _ = TS.stress_grid(n=2, device=CPU)
+    with host_builders_like_jax():
+        ts, _ = TS.stress_grid(n=2, device=CPU)
     rng = np.random.default_rng(3)
     R = 512                                          # 4 bands x 128 rays
     o = rng.uniform(-2, 2, (R, 3)).astype(np.float32)

@@ -21,6 +21,10 @@ Radiance .hdr codec, env_params and the glTF loader.
   TANGENT, point and directional lights, samplers, ior and transmission
   (no camera: the bounds fit), and an instanced GLB with alpha-MASK
   foliage written by `models/scenes.write_standin_glb`.
+- The env map and glTF comparisons give the port the host builder the
+  JAX side took (`same_host_builders`), and hold again with the JAX
+  package's native library forced off (the `*_native_off` cases), as
+  when its g++ build races another test worker.
 """
 import base64
 import importlib.util
@@ -47,6 +51,7 @@ from eidola_tpu_torch.scene import gltf as TG
 from eidola_tpu_torch.scene import hdr as TH
 from eidola_tpu_torch.utils.png import decode_png, encode_png
 
+from test_torch_foundations import jax_native_off, same_host_builders
 from test_torch_scene import _compare, _with_table
 
 torch.set_num_threads(2)
@@ -251,7 +256,20 @@ def test_hdr_png_fallback_matches_jax(tmp_path):
         TH.load_hdr(bad)
 
 
-def test_env_params_matches_jax():
+def test_env_params_matches_jax(monkeypatch):
+    same_host_builders(monkeypatch)
+    _check_env_params()
+
+
+def test_env_params_matches_jax_native_off(monkeypatch):
+    """The JAX side's alias table on its numpy builder: the port's
+    follows it, and the clamp stays bitwise."""
+    jax_native_off(monkeypatch)
+    same_host_builders(monkeypatch)
+    _check_env_params()
+
+
+def _check_env_params():
     img = _hdr_image(seed=2)
     jp = JD.env_params(JC.default_params(), JH.build_env_map(img))
     tp = TD.env_params(TC.default_params(device="cpu"),
@@ -398,7 +416,22 @@ GLTF_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(GLTF_CASES))
-def test_gltf_scene_matches_jax(tmp_path, case):
+def test_gltf_scene_matches_jax(tmp_path, case, monkeypatch):
+    same_host_builders(monkeypatch)
+    _check_gltf(tmp_path, case)
+
+
+@pytest.mark.parametrize("case", sorted(GLTF_CASES))
+def test_gltf_scene_matches_jax_native_off(tmp_path, case, monkeypatch):
+    """The JAX loader on its numpy builders (its library forced off), as
+    when its g++ build races another test worker: the port's loader
+    follows it and stays bitwise."""
+    jax_native_off(monkeypatch)
+    same_host_builders(monkeypatch)
+    _check_gltf(tmp_path, case)
+
+
+def _check_gltf(tmp_path, case):
     name, write = GLTF_CASES[case]
     path = str(tmp_path / name)
     write(path)
