@@ -22,9 +22,14 @@ drains.  In order:
    entry point with --no-denoise --no-indirect under EIDOLA_TRAV=xla
    (torch walk + the fused drain kernels);
 4. GI phase: the default frame (ReSTIR DI + GI, a-trous denoise) on
-   bistro_flat at 1920x1080, 4 frames, no switch set: every ray goes
-   through the one-kernel walk; prints ms/frame over frames 2-4 and the
-   stage split;
+   bistro_flat at 1920x1080, 2 frames, no switch set: every ray goes
+   through the one-kernel walk; prints ms/frame of frame 2 and the
+   stage split; its last frame (frame 1) is held against the JAX
+   package's frame 1 of bench.py's config on bistro_flat, stored in
+   tests/golden_torch/ (utils/reference.py: mean abs on a stride-4
+   lattice and of the 8x8 block means, each below 0.02; the max of the
+   block means and its block are printed): the headless app's frames
+   with no --orbit are the bench's (tests/test_torch_fullsize.py);
 5. GI-xla phase: the same default frame under EIDOLA_TRAV=xla at
    960x540, 1 frame, so the drain kernels run on sorted GI rays; the
    torch walk's largest call runs again under EIDOLA_COMPACT=0 and 1
@@ -43,12 +48,18 @@ drains.  In order:
    host-to-device copies and ms of each (bitwise equal, every batched
    leaf at a 256-byte offset, at most one copy per dtype), and the
    pinned host memory torch's caching allocator holds after the load;
+   its frame 1 is held against the stored JAX frame 1 of the standin as
+   the GI phase's is;
    then the bench phase: the port's bench (eidola_tpu_torch/bench.py,
    `measure`, what `python -m eidola_tpu_torch.bench` runs) on the scene
-   the standin phase loaded, 1 warm-up and 3 frames timed as one
+   the standin phase loaded, 2 warm-up and 3 frames timed as one
    window, the stage split, the profiled frame and the ray frame: its
    JSON has every field, `correct` true (the cornell golden on the
-   card), `value` x 3 = the window's ms > 0, three per-frame event times
+   card, and its last warm-up frame held against the standin's stored
+   JAX frame 1 before the window: `reference_*`, which it prints; a
+   miss of either reference check fails the script after this phase;
+   whether `hold()` leaves the standin's camera bitwise on the card is
+   printed), `value` x 3 = the window's ms > 0, three per-frame event times
    > 0 (the window's ms/frame is printed beside their median), the ray
    count measured, walk launches and no drain, per frame and in the run;
 7. options phase: the same frame under each of the JAX package's build
@@ -192,7 +203,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BISTRO = ["--scene", "bistro_flat", "--device", "cuda", "--quiet"]
 DI_ARGS = BISTRO + ["--size", "1920", "1080", "--frames", "2",
                     "--no-denoise", "--no-indirect"]
-GI_ARGS = BISTRO + ["--size", "1920", "1080", "--frames", "4"]
+GI_ARGS = BISTRO + ["--size", "1920", "1080", "--frames", "2"]
 GI_XLA_ARGS = BISTRO + ["--size", "960", "540", "--frames", "1"]
 STANDIN = ["--scene", "bistro_standin", "--quiet", "--size", "1920", "1080",
            "--frames", "2"]
@@ -507,27 +518,69 @@ BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "mrays_per_s",
                 "height", "device", "trav", "load_s", "first_frame_ms",
                 "frames", "peak_mem_gib", "launches_per_frame", "stage_ms",
                 "steady_busy_share", "golden_s", "golden_mean_abs",
-                "correct")
+                "reference_frame", "reference_file", "reference_mean_abs",
+                "reference_block_mean_abs", "reference_block_max",
+                "reference_block_max_at", "correct")
 BENCH_STAGES = {"primary_trace", "shading_ris", "shadow_trace",
                 "di_temporal_shade", "gi_trace", "gi_resample", "denoise",
                 "compose_post"}
 
 
+REFERENCE_MISSES = []     # labels of the frames past their reference
+
+
+def reference_check(label, name, res) -> None:
+    """The last frame of a headless phase (`res`, headless.run's dict)
+    against the JAX package's stored frame of bench.py's config for
+    `name` at that frame; prints the readings and records a miss."""
+    from eidola_tpu_torch import bench
+    from eidola_tpu_torch.utils import reference
+
+    frame = res["frames"] - 1
+    cfg = bench.frame_cfg(res["scene"], res["width"], res["height"])
+    path = reference.find(name, cfg, frame)
+    if path is None:
+        fail(f"{label}: no stored reference for {name} frame {frame}")
+    got = reference.compare(res["hdr"], reference.load(path))
+    print(reference.line(f"reference {label}: {name} {res['width']}x"
+                         f"{res['height']} frame {frame}", got), flush=True)
+    if not got["ok"]:
+        REFERENCE_MISSES.append(label)
+
+
 def bench_phase(loaded, load_s: float) -> None:
-    """The port's bench on the standin phase's (scene, camera): 1 warm-up
-    and 3 timed frames, then its stage split, profiled frame and ray
-    frame, its launch counts set to 0 just before and read just after."""
+    """The port's bench on the standin phase's (scene, camera): 2 warm-up
+    frames, the last held against its stored JAX frame, and 3 timed
+    frames, then its stage split, profiled frame and ray frame, its
+    launch counts set to 0 just before and read just after."""
     import torch
 
     from eidola_tpu_torch import bench
+    from eidola_tpu_torch.scene.camera import advance
+    from eidola_tpu_torch.utils import reference
 
     scene, cam = loaded
+    print("bench: hold() leaves the standin camera bitwise on the card: "
+          f"{all(torch.equal(a, b) for a, b in zip(advance(cam), cam))}",
+          flush=True)
     _reset_launches()
     out = bench.measure(scene, cam, torch.device("cuda"), "bistro_standin",
-                        warmup=1, iters=3, load_s=load_s)
+                        warmup=2, iters=3, load_s=load_s)
     torch.cuda.synchronize()
     launches = _launches()
     print("bench: " + json.dumps(out), flush=True)
+    if out.get("reference_frame") != 1:
+        fail(f"bench: no reference held ({out.get('reference_frame')})")
+    got = {k: out["reference_" + k] for k in bench.READINGS}
+    got.update(bound=reference.BOUND, ok=out["reference_mean_abs"]
+               < reference.BOUND and out["reference_block_mean_abs"]
+               < reference.BOUND)
+    print(reference.line("reference bench: bistro_standin 1920x1080 frame "
+                         "1", got), flush=True)
+    if not got["ok"]:
+        REFERENCE_MISSES.append("bench")
+    if REFERENCE_MISSES:
+        fail(f"frames past their stored JAX reference: {REFERENCE_MISSES}")
     missing = [k for k in BENCH_FIELDS if k not in out]
     if missing:
         fail(f"bench: the JSON lacks {missing}")
@@ -2216,8 +2269,10 @@ def main() -> None:
     di_launches, _ = run_phase("DI (xla)", DI_ARGS, (1080, 1920, 3), 2, "xla",
                                [di_cap], DRAINS, WALKS + MXU)
     lap("DI (xla)")
-    gi_launches, _ = run_phase("GI", GI_ARGS, (1080, 1920, 3), 4, None,
-                               [gi_cap], WALKS, DRAINS + MXU)
+    gi_launches, gi = run_phase("GI", GI_ARGS, (1080, 1920, 3), 2, None,
+                                [gi_cap], WALKS, DRAINS + MXU)
+    reference_check("GI", "bistro_flat", gi)
+    del gi
     lap("GI")
     from eidola_tpu_torch.ops import bvh
 
@@ -2254,6 +2309,7 @@ def main() -> None:
         DRAINS + MXU, watch=(st_scene, st_up,
                              contextlib.redirect_stdout(app_out)))
     check_standin(st)
+    reference_check("standin", "bistro_standin", st)
     app_lines = app_out.getvalue().splitlines()
     for line in app_lines:
         if line.startswith("load ") or line in st["profiler"].splitlines():

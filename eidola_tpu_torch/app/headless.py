@@ -172,9 +172,10 @@ def _sync(device) -> None:
 def run(argv=None) -> dict:
     """Render `--frames` frames; returns a summary dict (plus the last
     image, the final FrameState and the scene under "image", "state" and
-    "scene" for callers in Python).  ms_per_frame and the stage split are
-    the mean over the frames after the first (which carries the warm-up);
-    frame_ms lists every frame."""
+    "scene", and the last frame's linear HDR, a tensor on the device,
+    under "hdr", for callers in Python).  ms_per_frame and the stage
+    split are the mean over the frames after the first (which carries
+    the warm-up); frame_ms lists every frame."""
     args = build_argparser().parse_args(argv)
     device = torch.device(args.device)
     set_numerics()
@@ -279,10 +280,11 @@ def run(argv=None) -> dict:
         "n_leaves": int(scene.bvh.leaf_blocks.shape[0]),
         "profile": profile, "profiler": prof.summary(),
     }
-    return dict(summary, image=img, state=state, scene=scene)
+    return dict(summary, image=img, state=state, scene=scene,
+                hdr=outputs["hdr"])
 
 
 if __name__ == "__main__":
     out = run()
     print(json.dumps({k: v for k, v in out.items()
-                      if k not in ("image", "state", "scene")}))
+                      if k not in ("image", "state", "scene", "hdr")}))

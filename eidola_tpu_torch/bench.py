@@ -28,7 +28,18 @@ In order:
 4. timing, tracing off: `--warmup` frames (the first, synced on its
    own as `first_frame_ms`, carries the CUDA context's and the
    allocator's first use at the frame's size and is setup, never in
-   `value`), then `--iters` frames timed as one window, as bench.py
+   `value`); the last warm-up frame's linear HDR (frame 1 at the
+   default `--warmup` 2) is then held, after the warm-up's sync and
+   before the window, against the JAX package's frame of the same
+   scene, config and frame index stored in tests/golden_torch/
+   (utils/reference.py: mean abs on a stride-4 lattice and of the 8x8
+   block means, each below 0.02; the max of the block means and its
+   block are reported): `reference_frame`, `reference_mean_abs`,
+   `reference_block_mean_abs`, `reference_block_max` (and `_at`).  A
+   miss prints the line with "value": -1 and an "error", times
+   nothing and exits 1; a scene, size or warm-up with no stored
+   reference gives null fields and nothing in its place.  Then
+   `--iters` frames timed as one window, as bench.py
    times its frames: one torch.cuda.synchronize() and the host clock
    before the window, the frames enqueued with no host sync between
    them, one synchronize() after it.  `value` is the window's ms over
@@ -85,6 +96,7 @@ from .ops import packets
 from .ops.packets import resolve_trav
 from .render.config import RenderConfig, default_params, default_tonemap
 from .render.frame import init_frame_state, make_step
+from .utils import reference
 from .utils.profiler import MilliTimer, StageTimer, trace
 
 BASELINE_MS = 18.2
@@ -98,6 +110,7 @@ GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "tests", "golden", "cornell_64_d2_f4.npy")
 GOLDEN_BOUND = 0.02       # mean abs, tests/test_golden.py's bound
 WALKS = ("walk_closest", "walk_any")
+READINGS = ("mean_abs", "block_mean_abs", "block_max", "block_max_at")
 DRAINS = ("mt_fused", "mt_any_fused")
 MXU = ("mt_mxu",)
 
@@ -208,14 +221,22 @@ def frame_cfg(scene, width: int, height: int) -> RenderConfig:
                         alpha_geometry=alpha_geometry(scene))
 
 
+class ReferenceMiss(RuntimeError):
+    """The last warm-up frame is past its reference's bound."""
+
+
 def time_frames(cfg, scene, cam, params, tm, device, warmup: int,
-                iters: int):
+                iters: int, check=None):
     """(state, outputs, first frame ms, window ms, the window's frames'
     ms, the window's launches by kernel): a fresh state, `warmup` frames
     (the first synced and timed alone), then `iters` frames timed as one
     window: a sync and the host clock before it, none inside it, a sync
     after it.  Each frame's ms is between two CUDA events recorded at the
-    frame boundaries (on the CPU, two host clock readings)."""
+    frame boundaries (on the CPU, two host clock readings).  `check`,
+    when given, takes the last warm-up frame's outputs after the
+    warm-up's sync and returns whether they hold; it is synced before
+    the window, and a frame that does not hold raises ReferenceMiss
+    with no frame timed."""
     state, step = init_frame_state(cfg, cam), make_step(cfg)
     t0 = time.perf_counter()
     state, out = step(scene, cam, params, tm, state)
@@ -224,6 +245,12 @@ def time_frames(cfg, scene, cam, params, tm, device, warmup: int,
     for _ in range(warmup - 1):
         state, out = step(scene, cam, params, tm, state)
     _sync(device)
+    if check is not None:
+        held = check(out)
+        _sync(device)
+        if not held:
+            raise ReferenceMiss("the last warm-up frame missed its "
+                                "reference")
     before = read_launches()
     cuda = device.type == "cuda"
 
@@ -306,9 +333,32 @@ def measure(scene, cam, device, name: str, *, width: int = W,
                     error=f"golden mean abs {err} >= {GOLDEN_BOUND}: not "
                           f"timed")
 
+    ref_frame = warmup - 1
+    path = reference.find(name, cfg, ref_frame)
+    ref = None if path is None else reference.load(path)
+    held = dict.fromkeys(READINGS)
+
+    def check(outputs):
+        held.update(reference.compare(outputs["hdr"], ref))
+        return held["ok"]
+
     params, tm = default_params(device=device), default_tonemap(device=device)
-    state, outputs, first_ms, window_ms, frame_ms, launches = time_frames(
-        cfg, scene, cam, params, tm, device, warmup, iters)
+    try:
+        state, outputs, first_ms, window_ms, frame_ms, launches = \
+            time_frames(cfg, scene, cam, params, tm, device, warmup, iters,
+                        None if ref is None else check)
+    except ReferenceMiss:
+        out["correct"] = False
+    out.update(reference_frame=None if ref is None else ref_frame,
+               reference_file=None if path is None else os.path.relpath(
+                   path, reference.ROOT),
+               **{"reference_" + k: held[k] for k in READINGS})
+    if not out["correct"]:
+        return dict(out, value=-1, vs_baseline=0.0,
+                    error=f"frame {ref_frame} against {out['reference_file']}"
+                          f": lattice mean abs {held['mean_abs']}, block "
+                          f"means mean abs {held['block_mean_abs']} (bound "
+                          f"{reference.BOUND}): not timed")
     per_frame = {k: v / iters for k, v in launches.items()}
     peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None
     finite = bool(torch.isfinite(outputs["image"]).all())

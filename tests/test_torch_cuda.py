@@ -585,6 +585,43 @@ def test_bench_frame_events_fill_the_window(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "mini_grove"])
+def test_small_reference_on_the_card(cuda, name):
+    """Frame 3 at 272x136 (a GI field that cannot be tiled, as at 1080p)
+    through the walk kernels and the card's queue alpha march, against
+    the JAX package's stored frame (tests/golden_torch/; mini_grove's
+    rendered under the same march), within 0.02 mean abs; the readings
+    on the card equal the same frame's readings taken on the host."""
+    import os
+
+    from eidola_tpu_torch.app.headless import alpha_geometry
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.render.config import (RenderConfig,
+                                                default_params,
+                                                default_tonemap)
+    from eidola_tpu_torch.render.frame import init_frame_state, make_step
+    from eidola_tpu_torch.utils import reference as R
+
+    scene, cam = load_scene(name, device=cuda)
+    cfg = RenderConfig(width=272, height=136, max_depth=4,
+                       traversal_max_steps=1024,
+                       env_mode="hdr" if scene.env is not None else "sunsky",
+                       alpha_geometry=alpha_geometry(scene))
+    state, step = init_frame_state(cfg, cam), make_step(cfg)
+    params, tm = default_params(device=cuda), default_tonemap(device=cuda)
+    for _ in range(4):
+        state, out = step(scene, cam, params, tm, state)
+    ref = R.load(os.path.join(R.REF_DIR, R.file_name(
+        name, 272, 136, 4, 3, "queue" if cfg.alpha_geometry else "auto")))
+    got = R.compare(out["hdr"], ref)
+    assert got["ok"], R.line(name, got)
+    host = R.compare(out["hdr"].cpu(), ref)
+    assert host["block_max_at"] == got["block_max_at"]
+    assert host["mean_abs"] == pytest.approx(got["mean_abs"], rel=1e-6,
+                                             abs=1e-12)
+
+
+@pytest.mark.cuda
 def test_entry_step_on_the_card(cuda):
     """entry("cuda")'s step against entry("cpu")'s, the goldens' bound."""
     from eidola_tpu_torch.entry import entry
