@@ -48,16 +48,22 @@ drains.  In order:
    host-to-device copies and ms of each (bitwise equal, every batched
    leaf at a 256-byte offset, at most one copy per dtype), and the
    pinned host memory torch's caching allocator holds after the load;
-   its frame 1 is held against the stored JAX frame 1 of the standin as
-   the GI phase's is;
+   its frame 1 is held against the stored JAX frame 1 of the standin
+   under the queue march, the one the card runs with no switch set
+   (`bistro_standin_1920x1080_d4_f1_queue.npz`), as the GI phase's is
+   against bistro_flat's plain file (no alpha-tested material, no
+   march);
    then the bench phase: the port's bench (eidola_tpu_torch/bench.py,
    `measure`, what `python -m eidola_tpu_torch.bench` runs) on the scene
    the standin phase loaded, 2 warm-up and 3 frames timed as one
    window, the stage split, the profiled frame and the ray frame: its
    JSON has every field, `correct` true (the cornell golden on the
-   card, and its last warm-up frame held against the standin's stored
-   JAX frame 1 before the window: `reference_*`, which it prints; a
-   miss of either reference check fails the script after this phase;
+   card, its last warm-up frame held against the standin's stored JAX
+   frame 1 under the queue march, the card's (`_queue.npz`), before the
+   window: `reference_*`, and the window's last frame, frame 4, against
+   JAX's frame 4 under the same march after it (`_f4_queue.npz`):
+   `reference_last_*`, both of which it prints;
+   a miss of any reference check fails the script after this phase;
    whether `hold()` leaves the standin's camera bitwise on the card is
    printed), `value` x 3 = the window's ms > 0, three per-frame event times
    > 0 (the window's ms/frame is printed beside their median), the ray
@@ -520,30 +526,43 @@ BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "mrays_per_s",
                 "steady_busy_share", "golden_s", "golden_mean_abs",
                 "reference_frame", "reference_file", "reference_mean_abs",
                 "reference_block_mean_abs", "reference_block_max",
-                "reference_block_max_at", "correct")
+                "reference_block_max_at", "reference_last_frame",
+                "reference_last_file", "reference_last_mean_abs",
+                "reference_last_block_mean_abs", "reference_last_block_max",
+                "reference_last_block_max_at",
+                "alpha_march", "correct")
 BENCH_STAGES = {"primary_trace", "shading_ris", "shadow_trace",
                 "di_temporal_shade", "gi_trace", "gi_resample", "denoise",
                 "compose_post"}
 
 
 REFERENCE_MISSES = []     # labels of the frames past their reference
+# the JAX standin frames under the queue march, the card's default: the
+# bench phase's last warm-up frame (1) and last timed frame (4)
+STANDIN_QUEUE_REF = "bistro_standin_1920x1080_d4_f{frame}_queue.npz"
 
 
 def reference_check(label, name, res) -> None:
     """The last frame of a headless phase (`res`, headless.run's dict)
     against the JAX package's stored frame of bench.py's config for
-    `name` at that frame; prints the readings and records a miss."""
+    `name` at that frame, rendered under the alpha march the card runs
+    (the `_queue` file for an alpha-tested scene); prints the readings
+    and records a miss."""
     from eidola_tpu_torch import bench
+    from eidola_tpu_torch.render.tracer import _march_mode
     from eidola_tpu_torch.utils import reference
 
     frame = res["frames"] - 1
     cfg = bench.frame_cfg(res["scene"], res["width"], res["height"])
-    path = reference.find(name, cfg, frame)
+    march = _march_mode("cuda")
+    path = reference.find(name, cfg, frame, march)
     if path is None:
-        fail(f"{label}: no stored reference for {name} frame {frame}")
+        fail(f"{label}: no stored reference for {name} frame {frame} "
+             f"under the {march} march")
     got = reference.compare(res["hdr"], reference.load(path))
     print(reference.line(f"reference {label}: {name} {res['width']}x"
-                         f"{res['height']} frame {frame}", got), flush=True)
+                         f"{res['height']} frame {frame} against "
+                         f"{os.path.basename(path)}", got), flush=True)
     if not got["ok"]:
         REFERENCE_MISSES.append(label)
 
@@ -569,16 +588,24 @@ def bench_phase(loaded, load_s: float) -> None:
     torch.cuda.synchronize()
     launches = _launches()
     print("bench: " + json.dumps(out), flush=True)
-    if out.get("reference_frame") != 1:
-        fail(f"bench: no reference held ({out.get('reference_frame')})")
-    got = {k: out["reference_" + k] for k in bench.READINGS}
-    got.update(bound=reference.BOUND, ok=out["reference_mean_abs"]
-               < reference.BOUND and out["reference_block_mean_abs"]
-               < reference.BOUND)
-    print(reference.line("reference bench: bistro_standin 1920x1080 frame "
-                         "1", got), flush=True)
-    if not got["ok"]:
-        REFERENCE_MISSES.append("bench")
+    if out.get("alpha_march") != "queue":
+        fail(f"bench: the standin ran the {out.get('alpha_march')} march")
+    for tag, frame in (("", 1), ("last_", 4)):
+        want = STANDIN_QUEUE_REF.format(frame=frame)
+        if out.get(f"reference_{tag}frame") != frame or not str(out.get(
+                f"reference_{tag}file")).endswith(want):
+            fail(f"bench: frame {frame} not held against {want} "
+                 f"({out.get(f'reference_{tag}frame')}, "
+                 f"{out.get(f'reference_{tag}file')})")
+        got = {k: out[f"reference_{tag}" + k] for k in bench.READINGS}
+        got.update(bound=reference.BOUND, ok=got["mean_abs"]
+                   < reference.BOUND and got["block_mean_abs"]
+                   < reference.BOUND)
+        print(reference.line(f"reference bench: bistro_standin 1920x1080 "
+                             f"frame {frame} against {want}", got),
+              flush=True)
+        if not got["ok"]:
+            REFERENCE_MISSES.append(f"bench frame {frame}")
     if REFERENCE_MISSES:
         fail(f"frames past their stored JAX reference: {REFERENCE_MISSES}")
     missing = [k for k in BENCH_FIELDS if k not in out]

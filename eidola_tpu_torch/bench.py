@@ -31,10 +31,14 @@ In order:
    `value`); the last warm-up frame's linear HDR (frame 1 at the
    default `--warmup` 2) is then held, after the warm-up's sync and
    before the window, against the JAX package's frame of the same
-   scene, config and frame index stored in tests/golden_torch/
+   scene, config and frame index stored in tests/golden_torch/, rendered
+   under the alpha march the frame runs (`alpha_march`: queue on the
+   card, lockstep on the CPU, or EIDOLA_ALPHA_MARCH; null for a scene
+   with no alpha-tested material, which runs no march)
    (utils/reference.py: mean abs on a stride-4 lattice and of the 8x8
    block means, each below 0.02; the max of the block means and its
-   block are reported): `reference_frame`, `reference_mean_abs`,
+   block are reported): `reference_file`, `reference_frame`,
+   `reference_mean_abs`,
    `reference_block_mean_abs`, `reference_block_max` (and `_at`).  A
    miss prints the line with "value": -1 and an "error", times
    nothing and exits 1; a scene, size or warm-up with no stored
@@ -46,6 +50,22 @@ In order:
    its frames (`frames["window_ms"]` / `--iters`), so the host may
    dispatch frame k+1 while the card finishes frame k.  The queue
    march's syncs inside a frame (once a lap) stay: they are the frame's.
+   After the window's closing sync, outside `value`, the window's last
+   frame (frame warmup + iters - 1, 41 by default) is held against the
+   JAX package's frame of the same index where one is stored (at
+   1920x1080: bistro_flat and stress, `<scene>_1920x1080_d4_f41.npz`),
+   at the same bound: `reference_last_frame`, `reference_last_file`,
+   `reference_last_mean_abs`, `reference_last_block_mean_abs`,
+   `reference_last_block_max` (and `_at`).  Not against frame 1's file:
+   the accumulated frame's expectation, not only its noise, moves with
+   the temporal history, in the JAX package as in the port (at 272x136
+   JAX's frame 41 stands 0.023 mean abs from its frame 3, and the
+   port's frame 41 2e-7 from JAX's), so on an H100 frame 41 stands
+   0.02-0.05 from frame 1's file on all four scenes with no fault.
+   The alpha scenes' frame 41 is not stored (~5 h of JAX on a CPU a
+   scene); their fields are null.  A miss prints the line with
+   "value": -1, the readings and an "error", and exits 1, as a frame-1
+   miss does.
    The spread comes from a CUDA event recorded at each frame boundary
    inside the window, read after the final sync: device time between
    two boundaries, idle gaps included (on the CPU, which runs
@@ -96,6 +116,7 @@ from .ops import packets
 from .ops.packets import resolve_trav
 from .render.config import RenderConfig, default_params, default_tonemap
 from .render.frame import init_frame_state, make_step
+from .render.tracer import _march_mode
 from .utils import reference
 from .utils.profiler import MilliTimer, StageTimer, trace
 
@@ -319,9 +340,12 @@ def measure(scene, cam, device, name: str, *, width: int = W,
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     cfg = frame_cfg(scene, width, height)
+    march = _march_mode(device)
     out = {"metric": metric_name(height), "unit": UNIT, "scene": name,
            "n_tris": int(scene.bvh.n_tris), "width": width, "height": height,
-           "alpha_geometry": cfg.alpha_geometry, "env_mode": cfg.env_mode,
+           "alpha_geometry": cfg.alpha_geometry,
+           "alpha_march": march if cfg.alpha_geometry else None,
+           "env_mode": cfg.env_mode,
            "device": card(device), "trav": resolve_trav(device),
            "load_s": load_s}
     t0 = time.perf_counter()
@@ -333,10 +357,11 @@ def measure(scene, cam, device, name: str, *, width: int = W,
                     error=f"golden mean abs {err} >= {GOLDEN_BOUND}: not "
                           f"timed")
 
-    ref_frame = warmup - 1
-    path = reference.find(name, cfg, ref_frame)
+    ref_frame, last_frame = warmup - 1, warmup + iters - 1
+    path = reference.find(name, cfg, ref_frame, march)
     ref = None if path is None else reference.load(path)
-    held = dict.fromkeys(READINGS)
+    last_path = reference.find(name, cfg, last_frame, march)
+    held, last = dict.fromkeys(READINGS), dict.fromkeys(READINGS)
 
     def check(outputs):
         held.update(reference.compare(outputs["hdr"], ref))
@@ -349,16 +374,35 @@ def measure(scene, cam, device, name: str, *, width: int = W,
                         None if ref is None else check)
     except ReferenceMiss:
         out["correct"] = False
+    else:
+        if last_path is not None:   # after the window's sync: not in value
+            last.update(reference.compare(outputs["hdr"],
+                                          reference.load(last_path)))
+    if "ok" not in last:
+        last_path = None
+
+    def rel(p):
+        return None if p is None else os.path.relpath(p, reference.ROOT)
+
     out.update(reference_frame=None if ref is None else ref_frame,
-               reference_file=None if path is None else os.path.relpath(
-                   path, reference.ROOT),
-               **{"reference_" + k: held[k] for k in READINGS})
+               reference_file=rel(path),
+               **{"reference_" + k: held[k] for k in READINGS},
+               reference_last_frame=None if last_path is None else last_frame,
+               reference_last_file=rel(last_path),
+               **{"reference_last_" + k: last[k] for k in READINGS})
     if not out["correct"]:
         return dict(out, value=-1, vs_baseline=0.0,
                     error=f"frame {ref_frame} against {out['reference_file']}"
                           f": lattice mean abs {held['mean_abs']}, block "
                           f"means mean abs {held['block_mean_abs']} (bound "
                           f"{reference.BOUND}): not timed")
+    if last.get("ok") is False:
+        return dict(out, correct=False, value=-1, vs_baseline=0.0,
+                    error=f"frame {last_frame}, the window's last, against "
+                          f"{out['reference_last_file']}: lattice mean abs "
+                          f"{last['mean_abs']}, block means mean abs "
+                          f"{last['block_mean_abs']} (bound "
+                          f"{reference.BOUND})")
     per_frame = {k: v / iters for k, v in launches.items()}
     peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None
     finite = bool(torch.isfinite(outputs["image"]).all())

@@ -5,11 +5,23 @@ A reference is the JAX package's linear `hdr` of one frame of one
 config, written by tests/golden_torch/regen.py (the only file that
 imports JAX for it; this module reads numpy files only):
 
-- at 1920x1080 (bench.py's frame, frame 1) two statistics of it: the
-  pixels on a stride-4 lattice (`lattice`, float16) and the 8x8 block
-  means (`blocks`, float32);
-- at a small size (272x136, frame 3) the whole `hdr` (float32), from
-  which both statistics are taken the same way (the lattice at stride 1).
+- at 1920x1080 (bench.py's frame: frame 1, the bench's last warm-up
+  frame, and for some scenes a last timed frame) two statistics of it:
+  the pixels on a stride-4 lattice (`lattice`, float16) and the 8x8
+  block means (`blocks`, float32);
+- at a small size (272x136, frame 3 or 41) the whole `hdr` (float32),
+  from which both statistics are taken the same way (the lattice at
+  stride 1).
+
+A frame is held against the stored frame of its own index only: the
+accumulated frame's expectation moves with the temporal history, so an
+earlier frame is no reference for a later one.
+
+A scene with an alpha-tested material renders another frame under each
+of the HitTest's two marches (the queue march draws another BLEND rng
+stream than the lockstep one): a frame under the queue march, the
+card's default, is held against `<name>_queue.npz`, one under the
+lockstep march, the CPU's, against the plain `<name>.npz` (`find`).
 
 `compare` takes a port `hdr` tensor on any device and gives the mean abs
 on the lattice, the mean abs and the max abs of the block means, and the
@@ -38,25 +50,45 @@ CONFIG_FIELDS = ("width", "height", "max_depth", "traversal_max_steps",
 
 
 def file_name(scene: str, width: int, height: int, depth: int,
-              frame: int, march: str = "auto") -> str:
+              frame: int, march: str = "auto", tag: str = "") -> str:
     """`<scene>_<W>x<H>_d<depth>_f<frame>.npz`, `_<march>` before the
-    extension for a frame under EIDOLA_ALPHA_MARCH=<march>."""
-    tail = "" if march == "auto" else f"_{march}"
+    extension for a frame under EIDOLA_ALPHA_MARCH=<march> and `_<tag>`
+    after it for one under other march switches."""
+    tail = ("" if march == "auto" else f"_{march}") + (f"_{tag}" if tag
+                                                       else "")
     return f"{scene}_{width}x{height}_d{depth}_f{frame}{tail}.npz"
 
 
-def find(scene: str, cfg, frame: int):
-    """The path of `scene`'s reference for `cfg` at frame index `frame`,
-    or None where none is stored for that config and frame (a file of
-    the same name whose `meta` records another config is no reference
-    for `cfg`)."""
-    path = os.path.join(REF_DIR, file_name(scene, cfg.width, cfg.height,
-                                           cfg.max_depth, frame))
+def march_of(meta: dict) -> str:
+    """The alpha march a stored frame ran: its `meta["alpha_march"]`,
+    where "auto" (regen.py's default, resolved on JAX's CPU) is
+    lockstep."""
+    march = meta.get("alpha_march", "auto")
+    return "lockstep" if march == "auto" else march
+
+
+def find(scene: str, cfg, frame: int, march: str):
+    """The path of `scene`'s reference for `cfg` at frame index `frame`
+    under the alpha march `march` (what render/tracer._march_mode
+    resolves for the frame's device: queue or lockstep), or None where
+    none is stored.  A frame of an alpha-tested scene
+    (`cfg.alpha_geometry`) under the queue march reads the `_queue`
+    file, any other frame the plain one; a file whose `meta` records
+    another config, or for an alpha scene another march, is no
+    reference for the frame.  A scene with no alpha-tested material runs
+    no march and ignores `march`."""
+    queue = bool(cfg.alpha_geometry) and march == "queue"
+    path = os.path.join(REF_DIR, file_name(
+        scene, cfg.width, cfg.height, cfg.max_depth, frame,
+        "queue" if queue else "auto"))
     if not os.path.exists(path):
         return None
     meta = load(path)["meta"]
     held = all(meta[k] == getattr(cfg, k) for k in CONFIG_FIELDS)
-    return path if held and meta["frame"] == frame else None
+    held = held and meta["frame"] == frame
+    if cfg.alpha_geometry:
+        held = held and march_of(meta) == march
+    return path if held else None
 
 
 def load(path: str) -> dict:
@@ -125,9 +157,10 @@ def main(argv=None) -> int:
     """`python -m eidola_tpu_torch.utils.reference [--scene S] [--device
     D]`: bench.py's frames 0-1 of the scene at 1920x1080 (the scene's
     camera at every step) on the device, frame 1 held against its stored
-    reference; prints the readings' line and, last, one JSON line (null
-    readings where none is stored).  Exits 1 on a miss or a missing
-    reference."""
+    reference of the alpha march the device runs (EIDOLA_ALPHA_MARCH,
+    else queue on the card and lockstep on the CPU); prints the
+    readings' line and, last, one JSON line (null readings where none is
+    stored).  Exits 1 on a miss or a missing reference."""
     import argparse
     import time
 
@@ -137,6 +170,7 @@ def main(argv=None) -> int:
     from ..ops.packets import resolve_trav
     from ..render.config import default_params, default_tonemap
     from ..render.frame import init_frame_state, make_step
+    from ..render.tracer import _march_mode
 
     p = argparse.ArgumentParser(prog="eidola_tpu_torch.utils.reference")
     p.add_argument("--scene", default="bistro_standin")
@@ -160,16 +194,18 @@ def main(argv=None) -> int:
         state, out = step(scene, cam, params, tm, state)
         _sync(device)
         frame_s.append(time.perf_counter() - t0)
-    path = find(args.scene, cfg, frame)
+    march = _march_mode(device)
+    path = find(args.scene, cfg, frame, march)
     got = None if path is None else compare(out["hdr"], load(path))
     trav = resolve_trav(device)
     label = (f"{args.scene} {cfg.width}x{cfg.height} frame {frame} on "
-             f"{device.type} (trav {trav})")
+             f"{device.type} (trav {trav}, march {march})")
     print(line(label, got) if got else f"{label}: no stored reference",
           flush=True)
     print(json.dumps({"scene": args.scene, "width": cfg.width,
                       "height": cfg.height, "frame": frame,
                       "device": str(device), "trav": trav,
+                      "alpha_march": march,
                       "reference_file": path and os.path.relpath(path, ROOT),
                       "readings": got, "load_s": load_s,
                       "frame_s": frame_s}), flush=True)

@@ -622,6 +622,68 @@ def test_small_reference_on_the_card(cuda, name):
 
 
 @pytest.mark.cuda
+def test_three_stage_queue_reference_on_the_card(cuda, monkeypatch):
+    """mini_grove at 400x200 under EIDOLA_MARCH_MIN=2048: the card's queue
+    march (its default) runs the three lap capacities of 1920x1080, each
+    for a lap, and frame 3 holds against JAX's frame under the same
+    switches (tests/golden_torch/, the `_queue_min2048` file)."""
+    import os
+
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.render import tracer as TT
+    from eidola_tpu_torch.render.config import (default_params,
+                                                default_tonemap)
+    from eidola_tpu_torch.render.frame import init_frame_state, make_step
+    from eidola_tpu_torch.utils import reference as R
+    from test_torch_fullsize import (QUEUE3, QUEUE3_CAPS, QUEUE3_SIZE,
+                                     count_laps, laps_per_stage, small_cfg)
+
+    for k, v in QUEUE3.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("EIDOLA_ALPHA_MARCH", raising=False)
+    laps = count_laps(monkeypatch)
+    scene, cam = load_scene("mini_grove", device=cuda)
+    cfg = small_cfg(scene, *QUEUE3_SIZE)
+    assert TT._march_mode(cuda) == "queue"
+    assert TT._march_caps(cfg.width * cfg.height) == QUEUE3_CAPS
+    state, step = init_frame_state(cfg, cam), make_step(cfg)
+    params, tm = default_params(device=cuda), default_tonemap(device=cuda)
+    for _ in range(4):
+        state, out = step(scene, cam, params, tm, state)
+    assert min(laps_per_stage(laps, QUEUE3_CAPS)) >= 1, laps
+    ref = R.load(os.path.join(R.REF_DIR, R.file_name(
+        "mini_grove", *QUEUE3_SIZE, 4, 3, "queue", "min2048")))
+    got = R.compare(out["hdr"], ref)
+    assert got["ok"], R.line("mini_grove queue3", got)
+
+
+@pytest.mark.cuda
+def test_bench_standin_reads_the_queue_reference(cuda):
+    """The bench's standin line on the card, no switch set, 2 warm-up and 3
+    timed frames (chip_smoke.py's bench phase): frame 1 is held against
+    JAX's frame 1 under the queue march, the card's
+    (`bistro_standin_1920x1080_d4_f1_queue.npz`), and the window's last
+    frame, 4, against JAX's frame 4 under it after the window
+    (`reference_last_*`); both within the bound, `correct`."""
+    from eidola_tpu_torch import bench
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.utils import reference as R
+
+    scene, cam = load_scene("bistro_standin", device=cuda)
+    out = bench.measure(scene, cam, cuda, "bistro_standin", warmup=2,
+                        iters=3)
+    assert out["correct"] is True, out.get("error")
+    assert out["alpha_march"] == "queue"
+    assert out["reference_frame"] == 1 and out["reference_last_frame"] == 4
+    for tag, frame in (("", 1), ("last_", 4)):
+        assert out[f"reference_{tag}file"].endswith(
+            f"bistro_standin_1920x1080_d4_f{frame}_queue.npz")
+        assert out[f"reference_{tag}mean_abs"] < R.BOUND
+        assert out[f"reference_{tag}block_mean_abs"] < R.BOUND
+        assert len(out[f"reference_{tag}block_max_at"]) == 2
+
+
+@pytest.mark.cuda
 def test_entry_step_on_the_card(cuda):
     """entry("cuda")'s step against entry("cpu")'s, the goldens' bound."""
     from eidola_tpu_torch.entry import entry
