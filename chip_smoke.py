@@ -181,7 +181,15 @@ drains.  In order:
    the same step on the CPU, through the walk kernels and no drain;
 16. holds small DI frames on the card against the same frames through
    the plain versions on the CPU (cornell 32x32, stress 64x64);
-17. prints one JSON line with an entry per kernel and path (the
+17. fidelity phase, the port's root tools (eidola_tpu_torch/tools/):
+   the per-stage fidelity table (fidelity_metrics: cornell and alpha
+   at 32x32, 6 frames, 6 spp) and the ten captures of each scene
+   (fidelity_captures, 32x32), no switch set, every image within 0.02
+   mean abs of the JAX tool's stored output under the card's march
+   (tests/golden_torch/, alpha's `_queue` files), the table's rows
+   printed beside JAX's, walk launches and no drain; then perf_gather's
+   gather, sort, argsort and cumsum rates at 2,073,600 rays;
+18. prints one JSON line with an entry per kernel and path (the
    bistro_flat DI and GI frames, the standin frame, the interactive
    frame, the GLB frame, the viewer, the multidevice (b) rank, the
    standin DI frames with the fused and the mxu drains, the options
@@ -246,6 +254,8 @@ STANDIN_TRIS = (2.8e6, 3.0e6)   # 729 lots x (1,728 + 4 x ~560)
 GLTF = ["--size", "1920", "1080", "--quiet"]   # + the GLB, -e and frames
 ENV_SIZE = (1024, 2048)          # the .hdr's height x width
 VIEWER_S = 600.0                 # the viewer phase's time limit
+# the fidelity phase's size, frames and spp: those of the stored JAX files
+FIDELITY_SIZE, FIDELITY_FRAMES, FIDELITY_SPP = ("32", "32"), "6", "6"
 # Moller-Trumbore as a dot of coefficients and ray features (build_cmat):
 # the products by the nonzero coefficients (det 3, t 4, u 6, v 6) and
 # their sums, plus the epilogue: what the drain kernels compute.
@@ -1740,11 +1750,17 @@ def check_walk(name, call, label) -> dict:
     stats = torch.zeros((P, 2), dtype=torch.int32, device=rays.device)
     ref_stats = torch.zeros_like(stats)
     got = kern(walk, leaf_blocks, rays, max_steps, stats=stats, inst=inst)
-    t0 = time.perf_counter()
+    # the plain version runs once, timed by CUDA events: its check run is
+    # its timed run (it takes seconds a call)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
     want = W.walk_ref(walk, leaf_blocks, rays, any_hit, max_steps, group=1,
                       stats=ref_stats, inst=inst)
+    b.record()
     torch.cuda.synchronize()
-    ref_s = time.perf_counter() - t0
+    plain_ms = a.elapsed_time(b)
     err = _equal_bits(got, want)
     if err != 0.0 or not torch.equal(stats, ref_stats):
         fail(f"{name} ({label}): CUDA kernel differs from walk_ref(group=1) "
@@ -1754,8 +1770,6 @@ def check_walk(name, call, label) -> dict:
                               inst=inst), 5)
     kernel_ms = time_ms(W.launcher(name, walk, leaf_blocks, rays, max_steps,
                                    inst=inst)[0], 5)
-    plain_ms = time_ms(lambda: W.walk_ref(walk, leaf_blocks, rays, any_hit,
-                                          max_steps, group=1, inst=inst), 1)
     bound_ms, bound_by = walk_bound(walk, leaf_blocks, rays, stats, inst)
     s = stats.double()
     hit = float((got[1] >= 0).float().mean())
@@ -1770,7 +1784,7 @@ def check_walk(name, call, label) -> dict:
           f"{int(s[:, 0].max())} a packet), leaf events {int(s[:, 1].sum())}"
           f" (mean {float(s[:, 1].mean()):.1f}); hit lanes {hit:.3f}; cuda "
           f"{ms:.4f} ms (kernel alone {kernel_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms (first plain run {ref_s:.1f} s), bound "
+          f"{plain_ms:.4f} ms (its one run, the check's), bound "
           f"{bound_ms:.4f} ms ({bound_by})", flush=True)
     return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
@@ -2156,6 +2170,57 @@ def reference_phase() -> None:
             fail(f"{scene} CUDA vs CPU mean abs diff {diff} > 2e-3")
 
 
+def fidelity_phase() -> None:
+    """The port's root tools (eidola_tpu_torch/tools/) on the card: the
+    per-stage fidelity table and the ten captures of cornell and alpha at
+    the stored small size, each image within 0.02 mean abs of JAX's file
+    of the card's march (alpha's `_queue` files), with the table's rows
+    beside JAX's, every ray through the walk kernels and no drain; then
+    torch's gather / sort / argsort / cumsum rates at a 1080p frame's
+    rays."""
+    import torch
+
+    from eidola_tpu_torch.tools import (fidelity_captures, fidelity_metrics,
+                                        perf_gather)
+
+    def tool(fn, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = fn(argv)
+        for line in out.getvalue().splitlines():
+            if not line.startswith("{"):
+                print(f"fidelity: {line}", flush=True)
+        return res
+
+    dev = ["--device", "cuda", "--size", *FIDELITY_SIZE]
+    _reset_launches()
+    table = tool(fidelity_metrics.run, dev + [
+        "--frames", FIDELITY_FRAMES, "--spp", FIDELITY_SPP])
+    with tempfile.TemporaryDirectory(prefix="eidola_caps_") as tmp:
+        caps = {scene: tool(fidelity_captures.run, dev + [
+            "--scene", scene, "--out", os.path.join(tmp, scene)])
+            for scene in fidelity_metrics.SCENES}
+    launches = _launches()
+    print(f"fidelity: launches {json.dumps(launches)}", flush=True)
+    if min(launches[k] for k in WALKS) <= 0 or \
+            max(launches[k] for k in DRAINS + MXU) != 0:
+        fail(f"fidelity: not traced through the walk kernels ({launches})")
+    for scene in fidelity_metrics.SCENES:
+        for what, held in (("table", table["jax"].get(scene)),
+                           ("captures", caps[scene]["jax"])):
+            if held is None or not held["ok"]:
+                fail(f"fidelity: {scene}'s {what} against JAX's: {held}")
+            if scene == "alpha" and not held["file"].endswith("_queue.npz"):
+                fail(f"fidelity: alpha's {what} held against "
+                     f"{held['file']}, not the queue march's file")
+    rows = perf_gather.measure(perf_gather.RAYS, torch.device("cuda"))
+    print(f"fidelity: perf_gather on {card_line()}, R = {perf_gather.RAYS}",
+          flush=True)
+    for r in rows:
+        print(f"fidelity: {perf_gather.row_line(r, perf_gather.RAYS)}",
+              flush=True)
+
+
 class UploadWatch:
     """While active, keeps the host tree of each scene upload
     (scene/data.py's batched_device_put); the upload still runs."""
@@ -2468,6 +2533,8 @@ def main() -> None:
     lap("entry")
     reference_phase()
     lap("reference")
+    fidelity_phase()
+    lap("fidelity")
 
     # (kernel, path, launches in that phase, times on its largest call)
     rows = ([(k, "DI bistro_flat 1920x1080", di_launches[k], times[k])

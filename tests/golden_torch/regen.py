@@ -3,8 +3,9 @@
 
     JAX_PLATFORMS=cpu python tests/golden_torch/regen.py [NAME ...]
 
-NAME is a key of FULL, SMALL, QUEUE or LONG (default: DEFAULT, every
-file stored here; hours of JAX on a CPU).
+NAME is a key of FULL, SMALL, QUEUE, LONG or FIDELITY (default:
+DEFAULT, every frame file stored here; hours of JAX on a CPU).  FIDELITY
+names run by name, never beside a frame name in one process.
 
 * FULL: bench.py's frame (bench.py:79-113): `load_scene(name)`, 1920x1080,
   max_depth 4, the .hdr environment when the scene has one, the alpha
@@ -42,12 +43,34 @@ file stored here; hours of JAX on a CPU).
   temporal history (JAX's frame 41 at 272x136 stands 0.02-0.05 mean
   abs from its frame 3), so an earlier frame cannot stand in for it.
 
+* FIDELITY: the outputs of the JAX package's root fidelity tools, which
+  eidola_tpu_torch/tools/ is held against, computed by the tools' own
+  functions (loaded with importlib; their `main()`, which writes
+  docs/fidelity/, is never called):
+  - `fidelity_<scene>_<W>x<H>_f<frames>_s<spp>[_queue].npz`: the
+    per-stage table of tools/fidelity_metrics.py (`_oracle`,
+    `_pipeline`, `metrics`; the configs of its `main`, :92-119): the two
+    oracles' and the three stages' images (float32) and, in `meta`, the
+    rows.  Its import sets EIDOLA_CHUNK=256 (:31) before anything
+    imports eidola_tpu.ops.bvh, which reads it once, so these names run
+    in a process of their own;
+  - `captures_<scene>_<W>x<H>_f<frames>[_queue].npz`: the ten captures
+    of tools/fidelity_captures.py (its `render`, the capture list of its
+    `main`, :80-102), each the frame's LDR `image` (float32).
+  At 32x32 (6 frames, 6 spp; captures 1 frame) cornell and alpha under
+  the CPU's lockstep march, alpha again under the queue march (the
+  card's); at 96x96 the JAX tool's default table (48 frames, 96 spp) of
+  cornell and of alpha under the queue march.  cornell has no
+  alpha-tested material: one file serves both marches.
+
 Each file `<scene>_<W>x<H>_d<depth>_f<frame>.npz` also holds `meta`, a
 JSON string: the config fields, the frame index, the command, the JAX
 version, whether the JAX native host builders were loaded, and the
 seconds each frame took; a QUEUE file also the march switches it was
 rendered under (`env`).
 """
+import dataclasses
+import importlib.util
 import json
 import os
 import sys
@@ -85,6 +108,19 @@ LONG = {"cornell_f41": ("cornell", "auto", 42),
         "bistro_flat_f41": ("bistro_flat", "auto", 42),
         "stress_f41": ("stress", "auto", 42),
         "bistro_standin_queue_f4": ("bistro_standin", "queue", 5)}
+# name: (tool, scene, march, (W, H), frames[, spp])
+FIDELITY = {
+    "fidelity_cornell_small": ("metrics", "cornell", "auto", (32, 32), 6, 6),
+    "fidelity_alpha_small": ("metrics", "alpha", "auto", (32, 32), 6, 6),
+    "fidelity_alpha_small_queue": ("metrics", "alpha", "queue", (32, 32),
+                                   6, 6),
+    "fidelity_cornell": ("metrics", "cornell", "auto", (96, 96), 48, 96),
+    "fidelity_alpha_queue": ("metrics", "alpha", "queue", (96, 96), 48, 96),
+    "captures_cornell_small": ("captures", "cornell", "auto", (32, 32), 1),
+    "captures_alpha_small": ("captures", "alpha", "auto", (32, 32), 1),
+    "captures_alpha_small_queue": ("captures", "alpha", "queue", (32, 32),
+                                   1),
+}
 DEFAULT = [*SMALL, *QUEUE, *FULL, *LONG]
 FULL_SIZE, FULL_FRAMES = (1920, 1080), 2
 SMALL_SIZE, SMALL_FRAMES = (272, 136), 4
@@ -155,10 +191,130 @@ def render(name: str, kwargs: dict, full: bool, march: str = "auto",
           f"frame_s={[round(s, 1) for s in frame_s]} -> {path}", flush=True)
 
 
+def load_tool(name: str):
+    """The JAX package's root tool tools/<name>.py as a module (its import
+    runs; its `main` does not)."""
+    path = os.path.join(HERE, "..", "..", "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"jax_tools_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fidelity(key: str, tools: dict):
+    """One FIDELITY file through the JAX tool's own functions."""
+    from eidola_tpu import native
+    from eidola_tpu.models.scenes import load_scene
+    from eidola_tpu.render.config import (
+        DEBUG_BASE_COLOR, DEBUG_DEPTH, DEBUG_DIRECT, DEBUG_INDIRECT,
+        DEBUG_NORMAL, RenderConfig)
+
+    kind, name, march, (w, h), frames, *spp = FIDELITY[key]
+    os.environ["EIDOLA_ALPHA_MARCH"] = march
+    scene, cam = load_scene(name)
+    has_alpha = bool((np.asarray(scene.materials.alpha_mode) != 0).any())
+    seconds, arrays = {}, {}
+    if kind == "metrics":
+        tool = tools["fidelity_metrics"]
+        spp = spp[0]
+        # tools/fidelity_metrics.py:92-119
+        base = RenderConfig(width=w, height=h, max_depth=2,
+                            env_mode="sunsky", traversal_max_steps=2048,
+                            alpha_geometry=has_alpha, accumulate=False)
+        for label, cfg in (("oracle_d1", dataclasses.replace(
+                base, max_depth=1)), ("oracle", base)):
+            t = time.perf_counter()
+            arrays[label] = tool._oracle(scene, cam, cfg, spp)
+            seconds[label] = time.perf_counter() - t
+        cases = [("direct-only raw", "direct_raw", dataclasses.replace(
+                      base, denoise=False, indirect_enabled=False),
+                  "oracle_d1"),
+                 ("composed raw", "composed_raw",
+                  dataclasses.replace(base, denoise=False), "oracle"),
+                 ("composed denoised", "composed_denoised", base, "oracle")]
+        rows = []
+        for stage, label, cfg, ref in cases:
+            t = time.perf_counter()
+            arrays[label] = tool._pipeline(scene, cam, cfg, frames)
+            seconds[label] = time.perf_counter() - t
+            rmse, mrel = tool.metrics(arrays[label], arrays[ref])
+            rows.append({"stage": stage, "rmse": rmse, "mrel": mrel,
+                         "oracle_mean": float(arrays[ref].mean())})
+            print(f"{key}: {stage} RMSE {rmse:.4f} mean-rel "
+                  f"{mrel * 100:.2f}% ({seconds[label]:.1f} s)", flush=True)
+        extra = {"spp": spp, "rows": rows, "max_depth": base.max_depth,
+                 "traversal_max_steps": base.traversal_max_steps,
+                 "eidola_chunk": os.environ.get("EIDOLA_CHUNK")}
+        tail = f"_s{spp}"
+    else:
+        tool = tools["fidelity_captures"]
+        # tools/fidelity_captures.py:76-102
+        base = RenderConfig(width=w, height=h, max_depth=4,
+                            env_mode="sunsky", alpha_geometry=has_alpha)
+        rep = dataclasses.replace
+        caps = [
+            ("dir_raw", rep(base, denoise=False, debug_mode=DEBUG_DIRECT),
+             frames),
+            ("ind_raw", rep(base, denoise=False, debug_mode=DEBUG_INDIRECT),
+             frames),
+            ("com_raw", rep(base, denoise=False), frames),
+            ("dir_denoised", rep(base, debug_mode=DEBUG_DIRECT), frames),
+            ("ind_denoised", rep(base, debug_mode=DEBUG_INDIRECT), frames),
+            ("com_denoised", rep(base), frames),
+            ("gbuf_basecolor", rep(base, debug_mode=DEBUG_BASE_COLOR,
+                                   denoise=False), 1),
+            ("gbuf_normal", rep(base, debug_mode=DEBUG_NORMAL,
+                                denoise=False), 1),
+            ("gbuf_depth", rep(base, debug_mode=DEBUG_DEPTH,
+                               denoise=False), 1),
+            ("com_accum64", rep(base), 64),
+        ]
+        for label, cfg, n in caps:
+            t = time.perf_counter()
+            arrays[label] = tool.render(cfg, scene, cam, n).astype(
+                np.float32)
+            seconds[label] = time.perf_counter() - t
+            print(f"{key}: {label} mean {arrays[label].mean():.4f} "
+                  f"({seconds[label]:.1f} s)", flush=True)
+        extra = {"captures": [c[0] for c in caps],
+                 "max_depth": base.max_depth,
+                 "traversal_max_steps": base.traversal_max_steps}
+        tail = ""
+    meta = {"tool": f"tools/fidelity_{kind}.py", "scene": name, "width": w,
+            "height": h, "frames": frames, "env_mode": base.env_mode,
+            "alpha_geometry": has_alpha, "alpha_march": (
+                march if has_alpha else None),
+            "env": {"EIDOLA_ALPHA_MARCH": march},
+            "command": "JAX_PLATFORMS=cpu python tests/golden_torch/regen.py "
+                       + key,
+            "jax_version": jax.__version__,
+            "jax_native_builders": native.get_lib() is not None,
+            "seconds": seconds, **extra}
+    queue = "_queue" if has_alpha and march == "queue" else ""
+    prefix = "fidelity" if kind == "metrics" else "captures"
+    path = os.path.join(HERE, f"{prefix}_{name}_{w}x{h}_f{frames}{tail}"
+                              f"{queue}.npz")
+    np.savez_compressed(path, meta=np.array(json.dumps(meta)), **arrays)
+    print(f"{key}: -> {path}", flush=True)
+
+
 def main():
     which = sys.argv[1:] or DEFAULT
+    fid = [n for n in which if n in FIDELITY]
+    if fid and (len(fid) != len(which)
+                or len({FIDELITY[n][0] for n in fid}) > 1):
+        raise SystemExit("FIDELITY names run in a process of their own, "
+                         "one tool's names a process: tools/fidelity_"
+                         "metrics.py's import sets EIDOLA_CHUNK for every "
+                         "JAX frame after it")
+    # before anything imports eidola_tpu.ops.bvh, which reads EIDOLA_CHUNK
+    # once: the tool's import sets it (tools/fidelity_metrics.py:31)
+    tools = {t: load_tool(t) for t in sorted(
+        {f"fidelity_{FIDELITY[n][0]}" for n in fid})}
     for name in which:
-        if name in QUEUE:
+        if name in FIDELITY:
+            fidelity(name, tools)
+        elif name in QUEUE:
             scene, env, tag, size = QUEUE[name]
             render(scene, FULL.get(scene, SMALL.get(scene)), scene in FULL,
                    "queue", env, tag, name, size)
@@ -171,7 +327,8 @@ def main():
         else:
             raise SystemExit(f"unknown reference {name!r}: have "
                              f"{sorted(FULL)}, {sorted(SMALL)}, "
-                             f"{sorted(QUEUE)} and {sorted(LONG)}")
+                             f"{sorted(QUEUE)}, {sorted(LONG)} and "
+                             f"{sorted(FIDELITY)}")
 
 
 if __name__ == "__main__":

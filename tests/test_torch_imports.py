@@ -1,5 +1,6 @@
 """The port stands alone: no module of eidola_tpu_torch/ and not
-chip_smoke.py imports JAX or the JAX package, and none needs PIL.
+chip_smoke.py imports JAX, the JAX package or the repo's root tools/
+scripts, and none needs PIL.
 
 An `ast` scan of every source catches any import statement, at any depth;
 a subprocess in which `eidola_tpu` and `jax` cannot be imported then
@@ -19,7 +20,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "eidola_tpu_torch")
-FORBIDDEN = ("eidola_tpu", "jax", "jaxlib")
+# the JAX package, JAX, and the repo's root tools/ scripts (JAX code)
+FORBIDDEN = ("eidola_tpu", "jax", "jaxlib", "tools")
 
 
 def _sources():
@@ -122,7 +124,7 @@ print("ok")
 
 def test_every_module_imports_without_jax():
     code = ("import importlib, sys\n"
-            "for m in ('eidola_tpu', 'jax', 'jaxlib'):\n"
+            f"for m in {FORBIDDEN!r}:\n"
             "    sys.modules[m] = None\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
