@@ -90,7 +90,13 @@ drains.  In order:
    run and no drain; it keeps the direct stage's primary walk on the
    instanced bulk apart by frame, frame 0's (no seed yet) and the seeded
    ones of frames 2-4 (t_max bounded on some lanes by the last frame's
-   triangle), and prints the share of lanes each seed bounds;
+   triangle), and prints the share of lanes each seed bounds; frames 1
+   (the first camera move, where the field of view changes) and 3 (the
+   last) are held against the JAX package's headless app's frames of
+   the same flags and index under the queue march
+   (`bistro_standin_1920x1080_d4_f{1,3}_queue_interactive.npz`,
+   utils/reference.find with the orbit; each reading printed, a missing
+   file or a reading past 0.02 fails);
 9. gltf phase: bistro_standin's parts written as a GLB (about 2.9M
    instanced triangles: one glTF mesh per part, one primitive per
    material, one node per instance, PNG textures, alpha-MASK leaf cards,
@@ -103,7 +109,12 @@ drains.  In order:
    with the firefly clamp 4x its integral, the walk kernels ran on the
    instanced and the alpha BVH and no drain did, frame_idx goes 3 then
    5, the image is finite and the PNG decodes (utils/png.py) to
-   1080x1920 RGB;
+   1080x1920 RGB; the inputs (utils/reference.write_inputs) must have
+   the sha256 that the stored JAX frames record, and the first run's
+   last frame (2) and the resumed run's last (4) are held against JAX's
+   headless app's frames 2 and 4 of the same run on the same files
+   (`standin_glb_1920x1080_d4_f{2,4}_queue.npz`; a missing file, another
+   sha256 or a reading past 0.02 fails);
 10. viewer phase: the port's viewer in this process (app/viewer.start:
    its render and worker threads, the HTTP server on 127.0.0.1:0) on
    cornell at 1920x1080, no switch set; after a few frames
@@ -252,7 +263,10 @@ GOLDENS = {"alpha": "sunsky", "cornell": "sunsky", "hdr": "hdr",
            "punctual": "sunsky", "textured": "sunsky"}
 STANDIN_TRIS = (2.8e6, 3.0e6)   # 729 lots x (1,728 + 4 x ~560)
 GLTF = ["--size", "1920", "1080", "--quiet"]   # + the GLB, -e and frames
-ENV_SIZE = (1024, 2048)          # the .hdr's height x width
+# the interactive phase's and the gltf phase's frames held against the
+# JAX package's stored frames of their flags (tests/golden_torch/)
+INTERACTIVE_FRAMES = (1, 3)
+GLTF_FRAMES = (2, 4)
 VIEWER_S = 600.0                 # the viewer phase's time limit
 # the fidelity phase's size, frames and spp: those of the stored JAX files
 FIDELITY_SIZE, FIDELITY_FRAMES, FIDELITY_SPP = ("32", "32"), "6", "6"
@@ -393,8 +407,9 @@ class PrimaryWatch:
 
 
 class FrameWatch:
-    """While active, keeps each frame's accumulation count and motion
-    vectors (references only: no sync inside the timed frames)."""
+    """While active, keeps each frame's accumulation count, motion vectors
+    and linear `hdr` (references only: no sync inside the timed
+    frames)."""
 
     def __init__(self):
         self.frames = []
@@ -409,7 +424,8 @@ class FrameWatch:
 
             def watched(*args, **kw):
                 state, out = step(*args, **kw)
-                self.frames.append((state.accum_count, out["motion"]))
+                self.frames.append((state.accum_count, out["motion"],
+                                    out["hdr"]))
                 return state, out
             return watched
 
@@ -685,7 +701,7 @@ def check_interactive(res, frames: FrameWatch, walks: Capture) -> None:
     check_standin(res)
     if len(frames.frames) != 4:
         fail(f"interactive: {len(frames.frames)} frames watched, not 4")
-    for i, (count, motion) in enumerate(frames.frames):
+    for i, (count, motion, _) in enumerate(frames.frames):
         if float(count) != 1.0:
             fail(f"interactive: accum_count {float(count)} after frame "
                  f"{i + 1}, not 1 (the camera moved)")
@@ -1167,42 +1183,70 @@ def compaction_check(cap, label) -> None:
           flush=True)
 
 
-def write_inputs(tmp: str) -> tuple[str, str]:
+def write_inputs(tmp: str) -> tuple[str, str, dict]:
     """standin.glb from bistro_standin's parts and env.hdr, a 2048x1024
-    equirect (a sun-like hot spot over a sky gradient, seed 11)."""
-    import numpy as np
+    equirect (utils/reference.write_inputs, what the stored JAX frames of
+    the file scene were rendered from), and their sha256, which must be
+    the ones the stored frames' `meta` records."""
+    from eidola_tpu_torch.utils import reference
 
-    from eidola_tpu_torch.models.scenes import write_standin_glb
-    from eidola_tpu_torch.scene.hdr import write_hdr
-
-    glb, hdr = os.path.join(tmp, "standin.glb"), os.path.join(tmp, "env.hdr")
-    t0 = time.perf_counter()
-    size = write_standin_glb(glb)
-    glb_s = time.perf_counter() - t0
-    h, w = ENV_SIZE
-    theta = (np.arange(h)[:, None] + 0.5) / h * np.pi     # from the zenith
-    phi = (np.arange(w)[None, :] + 0.5) / w * 2.0 * np.pi
-    sky = np.clip(np.cos(theta), 0.0, 1.0)[..., None]
-    img = (np.asarray([0.25, 0.32, 0.45]) + sky * np.asarray([0.1, 0.2, 0.4])
-           ) * np.ones((h, w, 1))
-    ang = np.arccos(np.clip(np.sin(theta) * np.sin(0.9) * np.cos(phi - 2.0)
-                            + np.cos(theta) * np.cos(0.9), -1.0, 1.0))
-    img = img + (np.exp(-(ang / 0.02) ** 2)[..., None]
-                 * np.asarray([9000.0, 7600.0, 5200.0]))
-    img = img * np.random.default_rng(11).uniform(0.97, 1.03, (h, w, 1))
-    t0 = time.perf_counter()
-    write_hdr(hdr, img.astype(np.float32))
-    print(f"gltf: wrote {glb} ({size} bytes) in {glb_s:.2f}s and a "
-          f"{w}x{h} .hdr ({os.path.getsize(hdr)} bytes) in "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
-    return glb, hdr
+    files = reference.write_inputs(tmp)
+    glb, hdr = files["glb"], files["hdr"]
+    h, w = reference.ENV_SIZE
+    print(f"gltf: wrote {glb['path']} ({glb['bytes']} bytes) in "
+          f"{glb['seconds']:.2f}s and a {w}x{h} .hdr "
+          f"({hdr['bytes']} bytes) in {hdr['seconds']:.2f}s; sha256 "
+          f"{glb['sha256']} and {hdr['sha256']}", flush=True)
+    shas = {k: v["sha256"] for k, v in files.items()}
+    for frame in GLTF_FRAMES:
+        path = os.path.join(reference.REF_DIR, reference.file_name(
+            reference.GLTF_SCENE, 1920, 1080, 4, frame, "queue"))
+        if not os.path.exists(path):
+            fail(f"gltf: no stored JAX frame {frame} ({path})")
+        stored = reference.load(path)["meta"].get("inputs")
+        if stored != shas:
+            fail(f"gltf: the written inputs' sha256 {shas} are not those "
+                 f"that {os.path.basename(path)} was rendered from "
+                 f"({stored})")
+    return glb["path"], hdr["path"], shas
 
 
-def gltf_phase(glb: str, hdr: str, tmp: str):
+def held_frames(label, name, cfg, frames, argv, inputs=None) -> None:
+    """`frames` ({frame index: linear hdr}) of a headless phase against
+    the JAX package's stored frames of its flags (`argv`'s --orbit, and
+    `inputs`' sha256 for a scene read from files) under the march the
+    card runs; prints each reading and fails on a missing file or a
+    miss."""
+    from eidola_tpu_torch.render.tracer import _march_mode
+    from eidola_tpu_torch.utils import reference
+
+    march = _march_mode("cuda")
+    orbit = float(argv[argv.index("--orbit") + 1]) if "--orbit" in argv \
+        else 0.0
+    misses = []
+    for frame, hdr in frames.items():
+        path = reference.find(name, cfg, frame, march, orbit, inputs)
+        if path is None:
+            fail(f"{label}: no stored reference for {name} frame {frame} "
+                 f"under the {march} march, orbit {orbit}, inputs {inputs}")
+        got = reference.compare(hdr, reference.load(path))
+        print(reference.line(
+            f"reference {label}: {name} {cfg.width}x{cfg.height} frame "
+            f"{frame} against {os.path.basename(path)}", got), flush=True)
+        if not got["ok"]:
+            misses.append(frame)
+    if misses:
+        fail(f"{label}: frames {misses} past their stored JAX reference")
+
+
+def gltf_phase(glb: str, hdr: str, tmp: str, shas: dict):
     """The headless app on the GLB and the .hdr, 3 frames with a saved
-    state, then 2 more from it."""
+    state, then 2 more from it; the last frame of each run held against
+    the JAX package's frame of the same index on the same files
+    (`shas`)."""
     import numpy as np
 
+    from eidola_tpu_torch.utils import reference
     from eidola_tpu_torch.utils.png import decode_png
 
     ckpt, png = os.path.join(tmp, "s.npz"), os.path.join(tmp, "f.png")
@@ -1221,15 +1265,17 @@ def gltf_phase(glb: str, hdr: str, tmp: str):
         fail(f"gltf: instanced {scene.inst is not None}, env_mode "
              f"{res['env_mode']}, firefly clamp {res['firefly_clamp']} (want "
              f"instanced, hdr, {clamp})")
-    if scene.env.image.shape[:2] != ENV_SIZE or res["frame_idx"] != 3:
+    if scene.env.image.shape[:2] != reference.ENV_SIZE or \
+            res["frame_idx"] != 3:
         fail(f"gltf: env {tuple(scene.env.image.shape)}, frame_idx "
-             f"{res['frame_idx']} (want {ENV_SIZE}, 3)")
+             f"{res['frame_idx']} (want {reference.ENV_SIZE}, 3)")
     with open(png, "rb") as f:
         rgba = decode_png(f.read())
     if rgba.shape != (1080, 1920, 4) or (rgba[..., 3] != 255).any():
         fail(f"gltf: --out decodes to {rgba.shape}, not 1080x1920 RGB")
     check_calls("gltf", launches, walks.sizes)
     ms = res["ms_per_frame"]
+    cfg, held = res["cfg"], {GLTF_FRAMES[0]: res["hdr"]}
     del res, scene
     again = walk_capture()
     _, res = run_phase(
@@ -1241,6 +1287,8 @@ def gltf_phase(glb: str, hdr: str, tmp: str):
     if res["frame_idx"] != 5:
         fail(f"gltf: frame_idx {res['frame_idx']} after --load-state and 2 "
              f"frames, not 5")
+    held[GLTF_FRAMES[1]] = res["hdr"]
+    held_frames("gltf", reference.GLTF_SCENE, cfg, held, args, shas)
     print(f"gltf: frame_idx 3 after the first run, 5 after the reload; "
           f"the PNG of the last frame decodes to {rgba.shape[:2]}; firefly "
           f"clamp {clamp} = 4 x the env integral", flush=True)
@@ -2433,6 +2481,9 @@ def main() -> None:
         [it_walks], (PRIMARY0, SEEDED, "walk_any+inst", "walk_closest"),
         DRAINS + MXU, accum=1, watch=(watch, frames))
     check_interactive(it, frames, it_walks)
+    held_frames("interactive", "bistro_standin", it["cfg"],
+                {i: frames.frames[i][2] for i in INTERACTIVE_FRAMES},
+                INTERACTIVE)
     del it, frames
     check_calls("interactive", it_launches, it_walks.sizes)
     torch.cuda.empty_cache()
@@ -2440,8 +2491,8 @@ def main() -> None:
     # the scene pipeline: a GLB and an .hdr through the headless app, then
     # dropped into the viewer
     with tempfile.TemporaryDirectory(prefix="eidola_smoke_") as tmp:
-        glb, hdr = write_inputs(tmp)
-        gl_walks, _, gl_ms = gltf_phase(glb, hdr, tmp)
+        glb, hdr, shas = write_inputs(tmp)
+        gl_walks, _, gl_ms = gltf_phase(glb, hdr, tmp, shas)
         torch.cuda.empty_cache()
         lap("gltf")
         vw_walks = viewer_phase(glb, hdr, gl_ms)

@@ -164,6 +164,25 @@ def to_u8(img01: np.ndarray) -> np.ndarray:
     return (np.clip(img01, 0.0, 1.0) * 255).astype(np.uint8)
 
 
+def frame_config(args, scene, w: int, h: int) -> RenderConfig:
+    """The RenderConfig of the parsed flags `args` for `scene` (its
+    environment and alpha-tested materials) at the extent w x h."""
+    return RenderConfig(
+        width=w, height=h,
+        max_depth=args.max_depth,
+        env_mode="hdr" if scene.env is not None else "sunsky",
+        restir_mode=RESTIR_MODES[args.restir],
+        denoise=not args.no_denoise,
+        indirect_enabled=not args.no_indirect,
+        debug_mode=DEBUG_MODES[args.debug],
+        tonemap_kind={"uncharted2": 0, "hejl": 1, "aces": 2}[args.tonemap],
+        texture_mips=not args.no_texture_mips,
+        alpha_geometry=alpha_geometry(scene),
+        shadow_cadence=args.shadow_cadence,
+        primary_seed=args.primary_seed,
+    )
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -171,11 +190,11 @@ def _sync(device) -> None:
 
 def run(argv=None) -> dict:
     """Render `--frames` frames; returns a summary dict (plus the last
-    image, the final FrameState and the scene under "image", "state" and
-    "scene", and the last frame's linear HDR, a tensor on the device,
-    under "hdr", for callers in Python).  ms_per_frame and the stage
-    split are the mean over the frames after the first (which carries
-    the warm-up); frame_ms lists every frame."""
+    image, the final FrameState, the scene and the RenderConfig under
+    "image", "state", "scene" and "cfg", and the last frame's linear HDR,
+    a tensor on the device, under "hdr", for callers in Python).
+    ms_per_frame and the stage split are the mean over the frames after
+    the first (which carries the warm-up); frame_ms lists every frame."""
     args = build_argparser().parse_args(argv)
     device = torch.device(args.device)
     set_numerics()
@@ -195,20 +214,7 @@ def run(argv=None) -> dict:
     _sync(device)
     load_ms = load.ms() if args.quiet else load.print("scene+BVH")
 
-    cfg = RenderConfig(
-        width=w, height=h,
-        max_depth=args.max_depth,
-        env_mode="hdr" if scene.env is not None else "sunsky",
-        restir_mode=RESTIR_MODES[args.restir],
-        denoise=not args.no_denoise,
-        indirect_enabled=not args.no_indirect,
-        debug_mode=DEBUG_MODES[args.debug],
-        tonemap_kind={"uncharted2": 0, "hejl": 1, "aces": 2}[args.tonemap],
-        texture_mips=not args.no_texture_mips,
-        alpha_geometry=alpha_geometry(scene),
-        shadow_cadence=args.shadow_cadence,
-        primary_seed=args.primary_seed,
-    )
+    cfg = frame_config(args, scene, w, h)
     params = default_params(device=device)
     if scene.env is not None:
         params = env_params(params, scene.env)
@@ -280,11 +286,11 @@ def run(argv=None) -> dict:
         "n_leaves": int(scene.bvh.leaf_blocks.shape[0]),
         "profile": profile, "profiler": prof.summary(),
     }
-    return dict(summary, image=img, state=state, scene=scene,
+    return dict(summary, image=img, state=state, scene=scene, cfg=cfg,
                 hdr=outputs["hdr"])
 
 
 if __name__ == "__main__":
     out = run()
     print(json.dumps({k: v for k, v in out.items()
-                      if k not in ("image", "state", "scene", "hdr")}))
+                      if k not in ("image", "state", "scene", "cfg", "hdr")}))

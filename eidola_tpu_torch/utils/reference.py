@@ -17,6 +17,17 @@ A frame is held against the stored frame of its own index only: the
 accumulated frame's expectation moves with the temporal history, so an
 earlier frame is no reference for a later one.
 
+A frame is also held only against a frame of its own flags (`find`):
+the bench's static frame (ReSTIR DI temporal, shadows every frame, no
+seed, a still camera) and the interactive frame (chip_smoke.py's
+INTERACTIVE flags: the camera orbiting, spatiotemporal reuse, the
+shadow tiles at cadence 4, the seeded primary walk;
+`<name>_interactive.npz`) are different frames,
+and a frame of a scene read from files (the GLB and the .hdr that
+`write_inputs` writes, `GLTF_SCENE`) is held only against a file that
+records the same inputs' sha256.  A stored file that records none of
+these reads as the static frame of a registry scene.
+
 A scene with an alpha-tested material renders another frame under each
 of the HitTest's two marches (the queue march draws another BLEND rng
 stream than the lockstep one): a frame under the queue march, the
@@ -32,11 +43,15 @@ pass.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import time
 
 import numpy as np
 import torch
+
+from ..render.config import RESTIR_TEMPORAL
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -47,6 +62,15 @@ BLOCK = 8
 # RenderConfig of the frame it is compared with
 CONFIG_FIELDS = ("width", "height", "max_depth", "traversal_max_steps",
                  "env_mode", "alpha_geometry")
+# the frame's flags a reference's `meta` records beside them, with the
+# value a file that lacks the key (one stored before they were recorded:
+# the bench's static frame) reads as
+FLAG_DEFAULTS = {"restir_mode": RESTIR_TEMPORAL, "shadow_cadence": 1,
+                 "primary_seed": False}
+# the name the references of the scene that write_inputs writes are
+# stored under (bistro_standin's parts as a GLB, under its .hdr)
+GLTF_SCENE = "standin_glb"
+ENV_SIZE = (1024, 2048)          # write_inputs' .hdr: height x width
 
 
 def file_name(scene: str, width: int, height: int, depth: int,
@@ -67,28 +91,94 @@ def march_of(meta: dict) -> str:
     return "lockstep" if march == "auto" else march
 
 
-def find(scene: str, cfg, frame: int, march: str):
+def interactive(cfg, orbit: float = 0.0) -> bool:
+    """Whether a frame of `cfg` with the camera orbiting `orbit` radians a
+    frame is another than the static frame: any flag of FLAG_DEFAULTS
+    off its default, or a moving camera."""
+    return bool(orbit) or any(getattr(cfg, k) != v
+                              for k, v in FLAG_DEFAULTS.items())
+
+
+def find(scene: str, cfg, frame: int, march: str, orbit: float = 0.0,
+         inputs: dict | None = None):
     """The path of `scene`'s reference for `cfg` at frame index `frame`
     under the alpha march `march` (what render/tracer._march_mode
-    resolves for the frame's device: queue or lockstep), or None where
+    resolves for the frame's device: queue or lockstep), with the camera
+    orbiting `orbit` radians a frame and, for a scene read from files,
+    `inputs` the files' sha256 ({"glb": ..., "hdr": ...}), or None where
     none is stored.  A frame of an alpha-tested scene
     (`cfg.alpha_geometry`) under the queue march reads the `_queue`
-    file, any other frame the plain one; a file whose `meta` records
-    another config, or for an alpha scene another march, is no
-    reference for the frame.  A scene with no alpha-tested material runs
-    no march and ignores `march`."""
+    file, any other frame the plain one; an interactive frame reads the
+    `_interactive` file.  A file whose `meta` records another config,
+    other flags, another orbit or other inputs, or for an alpha scene
+    another march, is no reference for the frame; a file that records no
+    flags, orbit or inputs holds FLAG_DEFAULTS, a still camera and a
+    registry scene.  A scene with no alpha-tested material runs no march
+    and ignores `march`."""
     queue = bool(cfg.alpha_geometry) and march == "queue"
     path = os.path.join(REF_DIR, file_name(
         scene, cfg.width, cfg.height, cfg.max_depth, frame,
-        "queue" if queue else "auto"))
+        "queue" if queue else "auto",
+        "interactive" if interactive(cfg, orbit) else ""))
     if not os.path.exists(path):
         return None
     meta = load(path)["meta"]
     held = all(meta[k] == getattr(cfg, k) for k in CONFIG_FIELDS)
+    held = held and all(meta.get(k, v) == getattr(cfg, k)
+                        for k, v in FLAG_DEFAULTS.items())
+    held = held and meta.get("orbit", 0.0) == orbit
+    held = held and meta.get("inputs") == inputs
     held = held and meta["frame"] == frame
     if cfg.alpha_geometry:
         held = held and march_of(meta) == march
     return path if held else None
+
+
+def sha256(path: str) -> str:
+    """The hex sha256 of a file's bytes."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def env_image() -> np.ndarray:
+    """write_inputs' environment, (1024, 2048, 3) float32: a sun-like hot
+    spot over a sky gradient with a +-3% grain from seed 11."""
+    h, w = ENV_SIZE
+    theta = (np.arange(h)[:, None] + 0.5) / h * np.pi     # from the zenith
+    phi = (np.arange(w)[None, :] + 0.5) / w * 2.0 * np.pi
+    sky = np.clip(np.cos(theta), 0.0, 1.0)[..., None]
+    img = (np.asarray([0.25, 0.32, 0.45]) + sky * np.asarray([0.1, 0.2, 0.4])
+           ) * np.ones((h, w, 1))
+    ang = np.arccos(np.clip(np.sin(theta) * np.sin(0.9) * np.cos(phi - 2.0)
+                            + np.cos(theta) * np.cos(0.9), -1.0, 1.0))
+    img = img + (np.exp(-(ang / 0.02) ** 2)[..., None]
+                 * np.asarray([9000.0, 7600.0, 5200.0]))
+    img = img * np.random.default_rng(11).uniform(0.97, 1.03, (h, w, 1))
+    return img.astype(np.float32)
+
+
+def write_inputs(tmp: str) -> dict:
+    """The file scene's inputs in the directory `tmp`: standin.glb,
+    bistro_standin's parts as a GLB (models/scenes.write_standin_glb),
+    and env.hdr, env_image as a flat Radiance .hdr.  Returns each file's
+    path, size, seconds to write and sha256 under "glb" and "hdr"."""
+    from ..models.scenes import write_standin_glb
+    from ..scene.hdr import write_hdr
+
+    out = {}
+    for kind, write in (("glb", write_standin_glb),
+                        ("hdr", lambda p: write_hdr(p, env_image()))):
+        path = os.path.join(tmp, "standin.glb" if kind == "glb"
+                            else "env.hdr")
+        t0 = time.perf_counter()
+        write(path)
+        out[kind] = {"path": path, "bytes": os.path.getsize(path),
+                     "seconds": time.perf_counter() - t0,
+                     "sha256": sha256(path)}
+    return out
 
 
 def load(path: str) -> dict:
@@ -162,7 +252,6 @@ def main(argv=None) -> int:
     readings' line and, last, one JSON line (null readings where none is
     stored).  Exits 1 on a miss or a missing reference."""
     import argparse
-    import time
 
     from .. import bench
     from ..app.headless import _sync, set_numerics

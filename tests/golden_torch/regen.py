@@ -3,9 +3,9 @@
 
     JAX_PLATFORMS=cpu python tests/golden_torch/regen.py [NAME ...]
 
-NAME is a key of FULL, SMALL, QUEUE, LONG or FIDELITY (default:
-DEFAULT, every frame file stored here; hours of JAX on a CPU).  FIDELITY
-names run by name, never beside a frame name in one process.
+NAME is a key of FULL, SMALL, QUEUE, LONG, INTERACTIVE or FIDELITY
+(default: DEFAULT, every frame file stored here; hours of JAX on a CPU).
+FIDELITY names run by name, never beside a frame name in one process.
 
 * FULL: bench.py's frame (bench.py:79-113): `load_scene(name)`, 1920x1080,
   max_depth 4, the .hdr environment when the scene has one, the alpha
@@ -63,6 +63,33 @@ names run by name, never beside a frame name in one process.
   cornell and of alpha under the queue march.  cornell has no
   alpha-tested material: one file serves both marches.
 
+* INTERACTIVE: the JAX package's headless app itself
+  (`eidola_tpu.app.headless.run`), run in this process on chip_smoke.py's
+  argument lists, each frame's linear `hdr` taken by wrapping the
+  module's `make_step` (`run` looks the name up at call time, as
+  chip_smoke.py's FrameWatch wraps the port's):
+  - `bistro_standin_interactive`: chip_smoke.py's INTERACTIVE (the
+    standin at 1920x1080, 4 frames, the camera orbiting 0.01 rad a frame,
+    ReSTIR DI spatiotemporal, shadow cadence 4, the seeded primary walk)
+    under the queue march, the card's; frames 1 (the first camera move,
+    where the field of view changes) and 3 (the last) stored as FULL
+    files, `bistro_standin_1920x1080_d4_f{1,3}_queue_interactive.npz`;
+  - `mini_grove_interactive`, `mini_grove_interactive_queue`: the same
+    flags on mini_grove at 272x136 under the lockstep and the queue
+    march, frame 3's whole `hdr`;
+  - `standin_glb`: chip_smoke.py's GLTF run on the files that
+    eidola_tpu_torch.utils.reference.write_inputs writes (the standin as
+    a GLB and a 2048x1024 .hdr) under the queue march: `--frames 3
+    --save-state`, then `--load-state --frames 2`; the first run's last
+    frame (2) and the resumed run's last (4) stored as FULL files,
+    `standin_glb_1920x1080_d4_f{2,4}_queue.npz`, their `meta` with the
+    inputs' sha256 (`inputs`).
+  Their `meta` also records the argument list (`argv`, the files by
+  their names), the frame's flags (`restir_mode`, `shadow_cadence`,
+  `primary_seed`, `orbit`), as RenderConfig fields of the config JAX's
+  app built, and the seconds of every frame of the run.  The JAX
+  package's native host builders must be loaded (else the run stops).
+
 Each file `<scene>_<W>x<H>_d<depth>_f<frame>.npz` also holds `meta`, a
 JSON string: the config fields, the frame index, the command, the JAX
 version, whether the JAX native host builders were loaded, and the
@@ -87,8 +114,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from eidola_tpu_torch.utils.reference import (  # noqa: E402
-    BLOCK, block_means, file_name)
+    BLOCK, CONFIG_FIELDS, FLAG_DEFAULTS, GLTF_SCENE, block_means, file_name,
+    write_inputs)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FULL = {"bistro_standin": {}, "bistro_flat": {}, "bistro_hdr": {},
@@ -121,7 +150,16 @@ FIDELITY = {
     "captures_alpha_small_queue": ("captures", "alpha", "queue", (32, 32),
                                    1),
 }
-DEFAULT = [*SMALL, *QUEUE, *FULL, *LONG]
+# name: (scene, (W, H), march, frames rendered, frames stored)
+INTERACTIVE = {
+    "bistro_standin_interactive": ("bistro_standin", (1920, 1080), "queue",
+                                   4, (1, 3)),
+    "mini_grove_interactive": ("mini_grove", (272, 136), "auto", 4, (3,)),
+    "mini_grove_interactive_queue": ("mini_grove", (272, 136), "queue", 4,
+                                     (3,)),
+    GLTF_SCENE: (None, (1920, 1080), "queue", 5, (2, 4)),
+}
+DEFAULT = [*SMALL, *QUEUE, *FULL, *LONG, *INTERACTIVE]
 FULL_SIZE, FULL_FRAMES = (1920, 1080), 2
 SMALL_SIZE, SMALL_FRAMES = (272, 136), 4
 LATTICE = 4
@@ -189,6 +227,126 @@ def render(name: str, kwargs: dict, full: bool, march: str = "auto",
     np.savez_compressed(path, meta=np.array(json.dumps(meta)), **arrays)
     print(f"{name}: {w}x{h} frame {frames - 1} mean={meta['hdr_mean']:.4f} "
           f"frame_s={[round(s, 1) for s in frame_s]} -> {path}", flush=True)
+
+
+def with_size(argv: list, scene: str, size: tuple) -> list:
+    """`argv` with its --scene and --size values replaced."""
+    out = list(argv)
+    i = out.index("--scene")
+    out[i + 1] = scene
+    j = out.index("--size")
+    out[j + 1:j + 3] = [str(size[0]), str(size[1])]
+    return out
+
+
+class Frames:
+    """While active, the steps of the JAX app's `make_step` keep each
+    frame's linear `hdr` (numpy, float32), its seconds and the configs
+    the app built."""
+
+    def __init__(self):
+        self.hdr, self.seconds, self.cfgs = [], [], []
+
+    def __enter__(self):
+        from eidola_tpu.app import headless
+
+        self.orig = headless.make_step
+
+        def make_step(cfg):
+            self.cfgs.append(cfg)
+            step = self.orig(cfg)
+
+            def watched(*args, **kw):
+                t = time.perf_counter()
+                state, out = step(*args, **kw)
+                self.hdr.append(np.asarray(out["hdr"], dtype=np.float32))
+                self.seconds.append(time.perf_counter() - t)
+                return state, out
+            return watched
+
+        headless.make_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        from eidola_tpu.app import headless
+
+        headless.make_step = self.orig
+
+
+def headless_frames(key: str):
+    """One INTERACTIVE name through the JAX app's `run`: its stored
+    frames, each a file."""
+    import tempfile
+
+    from eidola_tpu import native
+    from eidola_tpu.app import headless
+
+    scene, (w, h), march, frames, stored = INTERACTIVE[key]
+    os.environ["EIDOLA_ALPHA_MARCH"] = march
+    if not native.get_lib():
+        raise SystemExit(f"{key}: the JAX package's native host builders "
+                         "did not load (ROADMAP C): no reference")
+    extra, runs = {}, []
+    with tempfile.TemporaryDirectory() as tmp, Frames() as watch:
+        png = os.path.join(tmp, "f.png")
+        if scene is None:
+            files = write_inputs(tmp)
+            ckpt = os.path.join(tmp, "s.npz")
+            base = ["--scene", files["glb"]["path"], "-e",
+                    files["hdr"]["path"]] + chip_smoke.GLTF
+            runs = [base + ["--frames", "3", "--save-state", ckpt],
+                    base + ["--frames", "2", "--load-state", ckpt]]
+            extra["inputs"] = {k: v["sha256"] for k, v in files.items()}
+            extra["input_bytes"] = {k: v["bytes"] for k, v in files.items()}
+        else:
+            runs = [with_size(chip_smoke.INTERACTIVE, scene, (w, h))]
+        for argv in runs:
+            headless.run(argv + ["--out", png])
+        # the files by their names: tmp differs from run to run
+        argv_meta = [[os.path.basename(a) if a.startswith(tmp) else a
+                      for a in argv] for argv in runs]
+    if len(watch.hdr) != frames:
+        raise SystemExit(f"{key}: {len(watch.hdr)} frames watched, not "
+                         f"{frames}")
+    cfg = watch.cfgs[0]
+    if any(c != cfg for c in watch.cfgs) or (cfg.width, cfg.height) != (
+            w, h):
+        raise SystemExit(f"{key}: configs {watch.cfgs}")
+    argv = runs[0]
+    orbit = float(argv[argv.index("--orbit") + 1]) if "--orbit" in argv \
+        else 0.0
+    name = scene or GLTF_SCENE
+    full = (w, h) == FULL_SIZE
+    for frame in stored:
+        hdr = watch.hdr[frame]
+        meta = {
+            "scene": name, "argv": argv_meta,
+            **{k: getattr(cfg, k) for k in CONFIG_FIELDS},
+            **{k: getattr(cfg, k) for k in FLAG_DEFAULTS},
+            "orbit": orbit, **extra,
+            "denoise": cfg.denoise, "indirect_enabled": cfg.indirect_enabled,
+            "alpha_march": march, "env": {"EIDOLA_ALPHA_MARCH": march},
+            "frame": frame, "frames_rendered": frames,
+            "stored": ("lattice (hdr[::4, ::4], float16), blocks (8x8 "
+                       "means, float32)" if full else "hdr (float32)"),
+            "lattice": LATTICE if full else None, "block": BLOCK,
+            "command": "JAX_PLATFORMS=cpu python tests/golden_torch/"
+                       "regen.py " + key,
+            "jax_version": jax.__version__,
+            "jax_native_builders": native.get_lib() is not None,
+            "frame_s": watch.seconds,
+            "hdr_mean": float(hdr.mean()),
+            "hdr_finite": bool(np.isfinite(hdr).all()),
+        }
+        arrays = ({"lattice": hdr[::LATTICE, ::LATTICE].astype(np.float16),
+                   "blocks": block_means(hdr)} if full else {"hdr": hdr})
+        path = os.path.join(HERE, file_name(
+            name, w, h, cfg.max_depth, frame, march,
+            "" if scene is None else "interactive"))
+        np.savez_compressed(path, meta=np.array(json.dumps(meta)), **arrays)
+        print(f"{key}: {w}x{h} frame {frame} mean={meta['hdr_mean']:.4f} "
+              f"frame_s={[round(s, 1) for s in watch.seconds]} -> {path}",
+              flush=True)
 
 
 def load_tool(name: str):
@@ -318,6 +476,8 @@ def main():
             scene, env, tag, size = QUEUE[name]
             render(scene, FULL.get(scene, SMALL.get(scene)), scene in FULL,
                    "queue", env, tag, name, size)
+        elif name in INTERACTIVE:
+            headless_frames(name)
         elif name in LONG:
             scene, march, frames = LONG[name]
             render(scene, FULL.get(scene, SMALL.get(scene)), scene in FULL,
@@ -327,7 +487,8 @@ def main():
         else:
             raise SystemExit(f"unknown reference {name!r}: have "
                              f"{sorted(FULL)}, {sorted(SMALL)}, "
-                             f"{sorted(QUEUE)}, {sorted(LONG)} and "
+                             f"{sorted(QUEUE)}, {sorted(LONG)}, "
+                             f"{sorted(INTERACTIVE)} and "
                              f"{sorted(FIDELITY)}")
 
 

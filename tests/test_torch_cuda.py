@@ -15,6 +15,8 @@ flat and instanced BVHs, the options' SBVH and instanced alpha BVH
 among them, outputs and per-packet step and event counts alike; the
 compacted torch walk against the uncompacted one.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -681,6 +683,52 @@ def test_bench_standin_reads_the_queue_reference(cuda):
         assert out[f"reference_{tag}mean_abs"] < R.BOUND
         assert out[f"reference_{tag}block_mean_abs"] < R.BOUND
         assert len(out[f"reference_{tag}block_max_at"]) == 2
+
+
+@pytest.mark.cuda
+def test_phase_frames_find_their_references(cuda, tmp_path):
+    """chip_smoke.py's interactive frames (1, 3) and gltf frames (2, 4)
+    find their stored JAX frames on the card: the card's march (queue),
+    the files' names, and for the gltf frames the sha256 of the inputs
+    written on this machine.  Renders no frame (the configs come from
+    the scenes at a small triangle count)."""
+    import importlib.util
+
+    from eidola_tpu_torch.app import headless
+    from eidola_tpu_torch.models.scenes import load_scene, write_standin_glb
+    from eidola_tpu_torch.render.tracer import _march_mode
+    from eidola_tpu_torch.scene.data import attach_env
+    from eidola_tpu_torch.scene.hdr import build_env_map, load_hdr
+    from eidola_tpu_torch.utils import reference as R
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(R.ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    march = _march_mode(cuda)
+    assert march == "queue"
+    files = R.write_inputs(str(tmp_path))
+    inputs = {k: v["sha256"] for k, v in files.items()}
+    small = str(tmp_path / "small.glb")
+    write_standin_glb(small, 0.002)
+    glb, _ = load_scene(small, device=cuda)
+    glb = attach_env(glb, build_env_map(load_hdr(files["hdr"]["path"]),
+                                        device=cuda))
+    standin, _ = load_scene("bistro_standin", device=cuda,
+                            target_mtris=0.002)
+    cases = [(cs.INTERACTIVE, standin, "bistro_standin", None, frame,
+              f"bistro_standin_1920x1080_d4_f{frame}_queue_interactive.npz")
+             for frame in cs.INTERACTIVE_FRAMES]
+    cases += [(["--scene", files["glb"]["path"], "-e",
+                files["hdr"]["path"]] + cs.GLTF, glb, R.GLTF_SCENE, inputs,
+               frame, f"standin_glb_1920x1080_d4_f{frame}_queue.npz")
+              for frame in cs.GLTF_FRAMES]
+    for argv, scene, name, inp, frame, want in cases:
+        args = headless.build_argparser().parse_args(argv)
+        cfg = headless.frame_config(args, scene, *args.size[:2])
+        path = R.find(name, cfg, frame, march, args.orbit, inp)
+        assert path is not None and os.path.basename(path) == want
+        assert R.march_of(R.load(path)["meta"]) == march
 
 
 @pytest.mark.cuda
