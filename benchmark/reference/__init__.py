@@ -1,0 +1,96 @@
+"""The plain reference the benchmark holds the program's frame to.
+
+It is written apart from the program, in plain PyTorch, and imports
+nothing of it: each module says what it was written from.
+
+  scene.py      the cell's input, the procedural stand-in, made by the
+                benchmark from its fixed seeds: world-space triangles
+  camera.py     the camera path and the primary rays (rng.py: the
+                frame's seeds and draws)
+  trace.py      every ray against every triangle, with the leaf cards'
+                alpha test and the HitTest march: no BVH
+  image.py      the a-trous denoiser, compose and post
+  precision.py  float64, or TF32 for the check's control
+
+`Reference` answers, for a frame of the cell, what the program's frame
+must give: the primary rays; the hit or the occlusion of any ray; the
+denoised image of a noisy one; the accumulated HDR and the LDR image of
+the denoised light.  It does not re-render the frame's sampling: the
+check hands it the rays, the noisy light and the accumulation history
+that the program's frame had (check.py says which).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import camera, image, rng
+from .precision import Precision
+from .scene import SCENES
+from .trace import Tracer
+
+ALPHA_HOPS = 4          # RenderConfig.alpha_hops, the renderer's default
+
+
+class Reference:
+    def __init__(self, config: dict, traffic: dict, seed: int, device,
+                 control: bool = False, scene=None):
+        render = config["render"]
+        for key, want in (("denoise", True), ("tonemap_kind", 0),
+                          ("accumulate", True), ("modulate_albedo", True),
+                          ("debug_mode", 0)):
+            if render.get(key, want) != want:
+                raise ValueError(f"the reference renders {key}={want!r}, "
+                                 f"the configuration {render[key]!r}")
+        if config["scene"] not in SCENES:
+            raise KeyError(f"the reference makes {sorted(SCENES)}, not "
+                           f"{config['scene']!r}")
+        self.device = torch.device(device)
+        self.num = Precision(control)
+        self.width, self.height = int(config["width"]), int(config["height"])
+        self.levels = (int(render["denoise_direct_levels"]),
+                       int(render["denoise_indirect_levels"]))
+        self.scene = scene if scene is not None else SCENES[config["scene"]](
+            **config.get("scene_args", {}), device=self.device)
+        self.path = camera.CameraPath(self.scene.view,
+                                      float(traffic["orbit_rad"]),
+                                      self.width, self.height, self.device)
+        self.tracer = Tracer(self.scene, render.get("alpha_hops", ALPHA_HOPS),
+                             self.num)
+        self.reseed(seed)
+
+    def reseed(self, seed: int) -> None:
+        self.time_word = int(seed) & rng.M32
+
+    def frame_word(self, index: int) -> int:
+        """The salt of frame `index`'s seeds."""
+        return (self.time_word + index) & rng.M32
+
+    def rays(self, index: int):
+        return camera.primary_rays(self.path, index, self.frame_word(index),
+                                   self.height, self.width, self.num)
+
+    def closest(self, o, d, t_min, t_max):
+        return self.tracer.closest(o, d, t_min, t_max)
+
+    def occluded(self, o, d, t_min, t_max):
+        return self.tracer.occluded(o, d, t_min, t_max)
+
+    def denoise(self, img, pos, nrm, mat, valid, indirect: bool):
+        return image.denoise(img, pos, nrm, mat, valid,
+                             self.levels[indirect],
+                             image.INDIRECT if indirect else image.DIRECT,
+                             self.num)
+
+    def finish(self, direct_ldr, indirect_ldr, emission, albedo,
+               prev_accum, prev_count, index: int):
+        """(accumulated HDR, its count, LDR image) of frame `index` from
+        its denoised light and the accumulation before it, which a camera
+        move resets."""
+        num = self.num
+        hdr = image.compose(direct_ldr, indirect_ldr, emission, albedo, num)
+        if self.path.moved(index):
+            prev_accum, prev_count = torch.zeros_like(hdr), 0.0
+        accum = num(num(prev_accum) + hdr)
+        count = float(prev_count) + 1.0
+        shown = num(accum / max(count, 1.0))
+        return accum, count, image.post(shown, self.frame_word(index), num)

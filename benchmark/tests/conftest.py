@@ -1,0 +1,134 @@
+"""Fixtures of the benchmark's own tests (python -m pytest
+benchmark/tests; the repo's tests/ never collects them).
+
+`bench_copy` copies BENCHMARK.json and benchmark/ into a temporary
+directory and adds a cell there as files only: the configuration
+`standin_tiny` (bistro_standin at 2 x 2 lots, at 32x32, depth 2), the
+orbit mix of the viewer's traffic (`orbit`: 0.01 rad a frame,
+spatiotemporal ReSTIR, shadow cadence 4, the seeded primary, a closed
+loop) and the cell `standin_orbit_tiny`, with a per-layer metric of its
+own (`compose_ms`, read by a new file under metrics/); the stage metrics
+take the new cell too.  `run_copy` runs the harness's measure() of one
+of the copy's cells in a subprocess whose `benchmark` package is the
+copy's.
+"""
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# the tiny cell's limits, set between the program's readings over 12
+# seeds on the CPU and the control's over 3 (benchmark/calibrate.py
+# --device cpu; PERF.md)
+TINY_LIMITS = {"ray_max_abs": 1e-5, "closest_mismatch": 0.02,
+               "occluded_mismatch": 0.02, "denoise_max_abs": 1e-5,
+               "image_max_abs": 1e-5, "state_max_rel": 1e-5}
+TINY_SCENE = {"target_mtris": 0.004}     # 2 x 2 lots, 15,874 triangles
+ORBIT = {"why": "the viewer's traffic: the camera orbits, one frame read "
+                "back before the next",
+         "warmup_frames": 2, "orbit_rad": 0.01,
+         "restir_mode": "spatiotemporal", "shadow_cadence": 4,
+         "primary_seed": True, "loop": "closed"}
+COMPOSE_MS = '''"""compose and post a frame: StageTimer's compose_post."""
+
+
+def read(trace):
+    ms = trace.stages.get("compose_post")
+    return None if ms is None else ms / trace.stage_frames
+'''
+
+
+def _dump(path, obj):
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1)
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def bench_copy(tmp_path):
+    root = tmp_path / "checkout"
+    root.mkdir()
+    shutil.copy(os.path.join(REPO, "BENCHMARK.json"), root)
+    shutil.copytree(os.path.join(REPO, "benchmark"), root / "benchmark",
+                    ignore=shutil.ignore_patterns("_cache", "__pycache__",
+                                                  "tests"))
+    b = root / "benchmark"
+    with open(b / "configs" / "bistro_standin.json") as f:
+        conf = json.load(f)
+    conf.update(name="standin_tiny", scene_args=TINY_SCENE, width=32,
+                height=32)
+    conf["render"] = dict(conf["render"], max_depth=2)
+    _dump(b / "configs" / "standin_tiny.json", conf)
+    _dump(b / "traffic" / "orbit.json", ORBIT)
+    _dump(b / "workloads" / "standin_orbit_tiny.json",
+          {"config": "standin_tiny", "traffic": "orbit", "chips": 1,
+           "check": {"rays_per_call": 64}, "limits": TINY_LIMITS})
+    (b / "metrics" / "compose_ms.py").write_text(COMPOSE_MS)
+    with open(root / "BENCHMARK.json") as f:
+        m = json.load(f)
+    m["configs"].append({"name": "standin_tiny", "source": "test",
+                         "file": "benchmark/configs/standin_tiny.json",
+                         "reduced": [], "why": "a cell added as files"})
+    m["workloads"].append({"name": "standin_orbit_tiny",
+                           "config": "standin_tiny", "traffic": "orbit",
+                           "chips": 1, "why": "a cell added as files"})
+    for x in m["per_layer"]:       # the new cell also takes the stages
+        if x["source"] == "program_span":
+            x["workloads"].append("standin_orbit_tiny")
+    m["per_layer"].append({"name": "compose_ms", "unit": "ms",
+                           "better": "lower", "source": "program_span",
+                           "layer": "compose and post: render/compose.py, "
+                                    "render/post.py",
+                           "moves": "frame_ms",
+                           "workloads": ["standin_orbit_tiny"]})
+    _dump(root / "BENCHMARK.json", m)
+    return root
+
+
+RUNNER = """
+import json, sys
+sys.path[:0] = [{root!r}, {repo!r}]
+import torch
+torch.set_num_threads(2)
+{prelude}
+from benchmark import manifest, run
+from benchmark.run import measure
+run.STAGE_S = run.TRACE_S = {seconds}
+cell = manifest.load_cell({cell!r})
+out = measure(cell, {seed}, {seconds}, {trace}, torch.device("cpu"))
+out.pop("breakdown", None)
+print(json.dumps({{"result": out, "modules": sorted(
+    {{m.split(".")[0] for m in sys.modules}})}}))
+"""
+
+
+def run_copy(root, cell, seed=2**31 + 7, seconds=0.5, trace=False,
+             prelude=""):
+    """measure() of `cell` of the copy at `root` in a subprocess, after
+    the code `prelude` (which may break the program underneath)."""
+    code = RUNNER.format(root=str(root), repo=REPO, cell=cell, seed=seed,
+                         seconds=seconds, trace=trace, prelude=prelude)
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, cwd=str(root))
+    assert done.returncode == 0, done.stderr[-3000:]
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
