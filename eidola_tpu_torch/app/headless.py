@@ -31,7 +31,10 @@ The readout is the JAX app's beside the port's own: a MilliTimer line
 for the scene, BVH and environment load, and the Profiler's scopes
 "Compile+first" (frame 0) and "Render" (the frames after it); the JSON
 summary adds the stage split (StageTimer), the frame times and the
-traversal the frames took ("trav").
+traversal the frames took ("trav"), and from the same timer the host's
+account of each stage a frame ("stage_host_per_frame": the host ms
+between its marks, its blocking reads and the ms the host waited in
+them).
 """
 from __future__ import annotations
 
@@ -253,8 +256,8 @@ def run(argv=None) -> dict:
     if args.profile_trace:
         profile = trace(lambda: step(scene, advance(cam), params, tm, state),
                         args.profile_trace, device)
-        # the profiler slows the host side of the frame it traces, so its
-        # busy share is a floor: the kernel time over a steady frame's wall
+        # the profiler slows the host side of the frame it traces, not its
+        # kernels: the steady share is their time over an untraced frame's
         profile["steady_busy_share"] = profile["kernel_ms"] / float(
             np.mean(steady))
         log(json.dumps(profile))
@@ -273,12 +276,15 @@ def run(argv=None) -> dict:
     log(prof.summary())
     log(mon.summary())
     stages = {k: v / len(steady) for k, v in timer.summary().items()}
+    host = {k: {f: v / len(steady) for f, v in row.items()}
+            for k, row in timer.host_summary().items()}
     summary = {
         "scene": args.scene, "width": w, "height": h, "frames": args.frames,
         "device": str(device), "trav": resolve_trav(device),
         "load_s": load_ms / 1e3,
         "ms_per_frame": float(np.mean(steady)), "frame_ms": frame_ms,
-        "stage_ms_per_frame": stages, "image_mean": float(img.mean()),
+        "stage_ms_per_frame": stages, "stage_host_per_frame": host,
+        "image_mean": float(img.mean()),
         "alpha_geometry": cfg.alpha_geometry, "env_mode": cfg.env_mode,
         "firefly_clamp": float(params.firefly_clamp),
         "frame_idx": int(state.frame_idx),

@@ -15,7 +15,7 @@ In order:
    the line has "value": -1 and an "error", nothing is rendered, and the
    exit code is 1; nothing falls back to the CPU.  `--device cpu` is for
    the tests: its line says "platform": "cpu" and holds no device metric
-   (busy share, peak memory and power limit are null);
+   (peak memory and power limit are null);
 2. the scene load, synced, as `load_s` (it carries the g++ build of the
    port's native scene builders when `_build/` is empty);
 3. correctness before timing: the golden config (cornell 64x64,
@@ -79,11 +79,7 @@ In order:
    no drain, else the bench fails) and the peak memory allocated since
    the load;
 5. per layer, in frames of their own after the timed ones: the stage
-   split (4 frames under utils/profiler.StageTimer), the
-   busy share (an estimate: the kernel ms of one frame under
-   torch.profiler over `value`; CUPTI may lengthen
-   the traced kernels, which would raise it; `profiled_frame` names the
-   top kernels), the rays
+   split (4 frames under utils/profiler.StageTimer), the rays
    (one steady frame under EIDOLA_COUNT_RAYS=1: sum(ops/packets.
    RAY_LEDGER), "measured"; EIDOLA_BENCH_RAYCOUNT=0 gives bench.py's
    modeled count instead; a count of 0 fails the bench) and, with
@@ -118,7 +114,7 @@ from .render.config import RenderConfig, default_params, default_tonemap
 from .render.frame import init_frame_state, make_step
 from .render.tracer import _march_mode
 from .utils import reference
-from .utils.profiler import MilliTimer, StageTimer, trace
+from .utils.profiler import MilliTimer, StageTimer
 
 BASELINE_MS = 18.2
 W, H = 1920, 1080
@@ -417,12 +413,6 @@ def measure(scene, cam, device, name: str, *, width: int = W,
         state, _ = step(scene, cam, params, tm, state, timer=timer)
     stage_ms = {k: v / STAGE_FRAMES for k, v in timer.summary().items()}
 
-    profiled = busy = None
-    if cuda:
-        profiled = trace(lambda: step(scene, cam, params, tm, state), None,
-                         device, top=8)
-        busy = profiled["kernel_ms"] / ms
-
     if os.environ.get("EIDOLA_BENCH_RAYCOUNT", "1") == "1":
         rays = count_rays(step, scene, cam, params, tm, state, device)
         method = "measured: live-lane traversal counters"
@@ -436,8 +426,7 @@ def measure(scene, cam, device, name: str, *, width: int = W,
         rays_per_frame=rays, correct=out["correct"] and finite,
         image_finite=finite, first_frame_ms=first_ms, frames=frames,
         peak_mem_gib=peak, launches_per_frame=per_frame,
-        stage_frames=STAGE_FRAMES, stage_ms=stage_ms,
-        steady_busy_share=busy, profiled_frame=profiled)
+        stage_frames=STAGE_FRAMES, stage_ms=stage_ms)
     if os.environ.get("EIDOLA_BENCH_BREAKDOWN"):
         def window(c):
             return time_frames(c, scene, cam, params, tm, device, warmup,

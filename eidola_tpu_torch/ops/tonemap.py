@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiler
+
 TONEMAP_UNCHARTED2 = 0
 TONEMAP_HEJL_RICHARD = 1
 TONEMAP_ACES = 2
@@ -32,7 +34,8 @@ def _uncharted2_curve(x):
 
 def tonemap_uncharted2(color):
     exposure_bias = 2.0
-    W = torch.tensor(11.2, dtype=torch.float32, device=color.device)
+    with profiler.sync("tonemap.upload"):    # from pageable host memory
+        W = torch.tensor(11.2, dtype=torch.float32, device=color.device)
     curr = _uncharted2_curve(exposure_bias * color)
     white_scale = 1.0 / _uncharted2_curve(W)
     return linear_to_srgb(torch.clamp(curr * white_scale, 0.0, 1.0))

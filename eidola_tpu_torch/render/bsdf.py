@@ -9,6 +9,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.math import cosine_sample_hemisphere, cross, dot3, normalize
+from ..utils import profiler
 
 
 class BsdfParams(NamedTuple):
@@ -86,7 +87,9 @@ def _sample_vndf(alpha, wo, u1, u2):
                                 wo[..., 2]], dim=-1))
     lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
     inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-12))
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device)
+    with profiler.sync("bsdf.upload"):       # from pageable host memory
+        x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype,
+                              device=vh.device)
     t1 = torch.where(
         (lensq > 1e-10)[..., None],
         torch.stack([-vh[..., 1] * inv_len, vh[..., 0] * inv_len,

@@ -25,6 +25,7 @@ from ..ops.halo import image_rows
 from ..ops.math import ldr_to_hdr
 from ..scene.camera import Camera
 from ..scene.data import SceneData
+from ..utils import profiler
 from .compose import compose
 from .config import (DEBUG_BASE_COLOR, DEBUG_DEPTH, DEBUG_DIRECT,
                      DEBUG_EMISSIVE, DEBUG_INDIRECT, DEBUG_METALLIC,
@@ -110,7 +111,16 @@ def render_frame(cfg: RenderConfig, scene: SceneData, cam: Camera,
                  params: RenderParams, tm: TonemapParams, state: FrameState,
                  timer=None):
     """One full frame.  Returns (new_state, outputs dict).  `timer`
-    (utils.profiler.StageTimer) marks the stages of the frame."""
+    (utils.profiler.StageTimer) marks the stages of the frame and, as the
+    active timer until the frame returns or raises, spans its syncs."""
+    profiler.set_active(timer)
+    try:
+        return _render_frame(cfg, scene, cam, params, tm, state, timer)
+    finally:
+        profiler.set_active(None)
+
+
+def _render_frame(cfg, scene, cam, params, tm, state, timer):
     stride = 2 if cfg.indirect_half_res else 1
     w, w2 = cfg.width, cfg.width // stride
     row0, h = image_rows(cfg.height)

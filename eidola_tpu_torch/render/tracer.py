@@ -34,6 +34,7 @@ from ..ops.packets import (any_hit_img, any_hit_sorted, closest_hit_img,
                            closest_hit_sorted, make_ray_order)
 from ..scene.data import ALPHA_BLEND, ALPHA_MASK, SceneData, shade_row
 from ..scene.textures import sample_bilinear
+from ..utils import profiler
 from .bsdf import eval_bsdf, pdf_bsdf, sample_bsdf
 from .config import RenderConfig, RenderParams
 from .pathtrace import (env_pdf_dir, env_radiance, env_selection_prob,
@@ -130,6 +131,11 @@ def _alpha_march(scene: SceneData, hop_bvh, o, d, a_tmax, rec0, rng_state,
     return rng_f.reshape(shape), rec, occluded.reshape(shape)
 
 
+def _pending_count(pending) -> int:
+    with profiler.sync("march.count"):
+        return int(pending.sum())
+
+
 def _march_band(scene, hop_bvh, o_f, d_f, tmax_f, rec, rng_f, occluded,
                 rec_type, budget, max_steps, occl, caps):
     """The hop loop over one band of flat rays; updates rec (a list of
@@ -140,8 +146,9 @@ def _march_band(scene, hop_bvh, o_f, d_f, tmax_f, rec, rng_f, occluded,
     bleft = torch.where(pending, budget, 0)
     for k, cap in enumerate(caps):
         nxt = caps[k + 1] if k + 1 < len(caps) else 0
-        while int(pending.sum()) > nxt:
-            sel = torch.nonzero(pending)[:cap, 0]
+        while _pending_count(pending) > nxt:
+            with profiler.sync("march.select"):
+                sel = torch.nonzero(pending)[:cap, 0]
             rec_sel = rec_type(*[x[sel] for x in rec])
             rng_new, pt = _alpha_passthrough(scene, rec_sel, rng_f[sel])
             b_sel = bleft[sel]

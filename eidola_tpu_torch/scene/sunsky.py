@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..ops.math import dot3, luminance, make_frame, normalize, to_world
+from ..utils import profiler
 from .data import SunSkyParams
 
 _XYZ2RGB = (
@@ -37,7 +38,8 @@ def _zenith_chromaticity(T, ts):
 
 
 def _vec(values, like):
-    return torch.tensor(values, dtype=torch.float32, device=like.device)
+    with profiler.sync("sunsky.upload"):     # from pageable host memory
+        return torch.tensor(values, dtype=torch.float32, device=like.device)
 
 
 def calc_sun_color(sun_elev, turbidity):

@@ -54,7 +54,7 @@ FIELDS = {"metric", "value", "unit", "vs_baseline", "mrays_per_s",
           "mrays_method", "rays_per_frame", "scene", "n_tris", "width",
           "height", "device", "trav", "load_s", "first_frame_ms", "frames",
           "peak_mem_gib", "launches_per_frame", "stage_ms",
-          "steady_busy_share", "golden_s", "golden_mean_abs", "correct"}
+          "golden_s", "golden_mean_abs", "correct"}
 FRAME_FIELDS = {"n", "median", "mean", "min", "max", "p25", "p75",
                 "tail_pct", "tail_ms", "frame_ms", "window_ms"}
 
@@ -99,7 +99,7 @@ def test_bench_prints_one_json_line_last(small):
     assert out["vs_baseline"] == pytest.approx(18.2 / out["value"])
     assert out["first_frame_ms"] > 0 and out["load_s"] > 0
     # no device metric from a CPU run
-    assert out["peak_mem_gib"] is None and out["steady_busy_share"] is None
+    assert out["peak_mem_gib"] is None
     assert set(out["stage_ms"]) == STAGES
     assert all(v >= 0 for v in out["stage_ms"].values())
     # the CPU traces with the torch walk: no kernel launched

@@ -563,7 +563,7 @@ def test_bench_on_the_card(cuda):
     assert per["walk_closest_instanced"] > 0 and per["walk_any"] > 0
     assert per["walk_closest"] > per["walk_closest_instanced"]   # alpha BVH
     assert per["mt_fused"] == per["mt_any_fused"] == per["mt_mxu"] == 0
-    assert out["peak_mem_gib"] > 0 and out["steady_busy_share"] > 0
+    assert out["peak_mem_gib"] > 0
     assert out["mrays_method"].startswith("measured")
 
 
@@ -742,3 +742,54 @@ def test_entry_step_on_the_card(cuda):
     _, want = fn(*args)
     assert got.is_cuda and bool(torch.isfinite(got).all())
     assert float((got.cpu() - want).abs().mean()) < 0.02
+
+
+@pytest.mark.cuda
+def test_every_sync_of_an_alpha_frame_is_spanned(cuda):
+    """Under torch.cuda.set_sync_debug_mode("warn"), every synchronizing
+    call of a mini_grove frame (the alpha HitTest's queue march, the sun
+    and sky, the GI bounces) falls inside one of the StageTimer's sync
+    spans, as many a site as the timer's spans count."""
+    import time
+    import warnings
+
+    from eidola_tpu_torch import bench
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.render.config import (default_params,
+                                                default_tonemap)
+    from eidola_tpu_torch.render.frame import init_frame_state, make_step
+    from eidola_tpu_torch.utils.profiler import StageTimer
+
+    scene, cam = load_scene("mini_grove", device=cuda)
+    cfg = bench.frame_cfg(scene, 64, 64)
+    step = make_step(cfg)
+    params, tm = default_params(device=cuda), default_tonemap(device=cuda)
+    state, _ = step(scene, cam, params, tm, init_frame_state(cfg, cam))
+    torch.cuda.synchronize()
+    timer = StageTimer(cuda)
+    warned = []
+
+    def hook(message, *a, **k):
+        # one warning a sync, stamped on the spans' clock (the mode's own
+        # notice that it is a prototype is not one)
+        if "called a synchronizing CUDA operation" in str(message):
+            warned.append(time.perf_counter_ns())
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(scene, cam, params, tm, state, timer=timer)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [s for s in timer.spans() if s[0] == "sync"]
+    seen, spanned = {}, {}
+    for t in warned:
+        site = next((s[1] for s in syncs if s[4] <= t <= s[5]), None)
+        seen[site] = seen.get(site, 0) + 1
+    for s in syncs:
+        spanned[s[1]] = spanned.get(s[1], 0) + 1
+    assert spanned.get("march.count", 0) > 0
+    assert seen == spanned
