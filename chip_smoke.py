@@ -68,6 +68,12 @@ drains.  In order:
    printed), `value` x 3 = the window's ms > 0, three per-frame event times
    > 0 (the window's ms/frame is printed beside their median), the ray
    count measured, walk launches and no drain, per frame and in the run;
+   then the alpha march's laps (ops/alpha_lap.py): one standin frame
+   with every lap counted, as many as its march.select spans and as
+   alpha_lap.LAUNCHES, and on its largest lap lap_prep + lap_merge
+   against the plain lap bitwise, both timed beside the kernels' bytes
+   bound at 3.35 TB/s, and the device kernels a whole lap launches
+   through the kernels and through the plain lap (profiler);
 7. options phase: the same frame under each of the JAX package's build
    and trace options, the switch in the environment: (s) EIDOLA_SBVH=1,
    (f) EIDOLA_ALPHA_FLAT=0, (c) EIDOLA_ALPHA_CULL=1, (d)
@@ -664,6 +670,150 @@ def bench_phase(loaded, load_s: float) -> None:
             fail(f"bench: not traced through the walk kernels alone ({got})")
     print("bench: launches in the run (golden, warm-up, timed, stage "
           f"and ray frames) {json.dumps(launches)}", flush=True)
+    lap_check(scene, cam)
+
+
+def _lap_bytes(n: int, n_inst: int, textured: bool) -> int:
+    """Bytes a lap of n queued lanes moves through lap_prep and lap_merge
+    (csrc/alpha_lap.cu), each row a lane gathers counted once: prep reads
+    sel, the record, rng, budget, t_max and ray (72), the triangle's
+    material and uv rows and the material's entries (56), the instance
+    search (8 (log2 I + 1) + 16) and four texels with the texture's size
+    and wrap (48), and writes the compact rays and scratch (58); merge
+    reads sel, the re-trace's record and the scratch (46) and writes the
+    record, rng, flags and budget (38)."""
+    search = 8 * n_inst.bit_length() + 16 if n_inst else 0
+    return n * (72 + 56 + search + (48 if textured else 0) + 58 + 46 + 38)
+
+
+def _profiled_kernels(fn) -> int:
+    """Device kernels (memcopies and memsets aside) `fn` launches, from the
+    profiler's raw events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+def lap_check(scene, cam) -> None:
+    """The alpha march's lap on the card (ops/alpha_lap.py): one standin
+    frame at 1920x1080 with every lap's size and kind counted and its
+    largest lap's state kept; on it lap_prep + lap_merge against the plain
+    lap (render/tracer.py `_lap_prep_ref` / `_lap_merge_ref` on the same
+    CUDA tensors) bitwise, the compact rays and scratch and the band after
+    the whole lap alike; both timed (CUDA events), beside the kernels'
+    bytes bound at 3.35 TB/s; the kernels a whole lap launches, through
+    the kernels and through the plain lap, from the profiler; the laps
+    counted in alpha_lap.LAUNCHES against the march's select spans."""
+    import torch
+
+    from eidola_tpu_torch import bench
+    from eidola_tpu_torch.ops import alpha_lap
+    from eidola_tpu_torch.ops.packets import closest_hit_sorted, sort_order
+    from eidola_tpu_torch.render import tracer as TT
+    from eidola_tpu_torch.render.config import default_params, default_tonemap
+    from eidola_tpu_torch.render.frame import init_frame_state, make_step
+    from eidola_tpu_torch.utils.profiler import StageTimer
+
+    dev = torch.device("cuda")
+    cfg = bench.frame_cfg(scene, 1920, 1080)
+    sizes, big = [], {}
+    lap = TT._march_lap
+
+    def watched(sc, hop, sel, band, max_steps, occl):
+        n = sel.numel()
+        sizes.append((n, occl))
+        if n > big.get("n", 0):
+            big.update(n=n, args=(sc, hop, sel.clone(),
+                                  type(band)(*[a.clone() for a in band]),
+                                  max_steps, occl))
+        return lap(sc, hop, sel, band, max_steps, occl)
+
+    params, tm = default_params(device=dev), default_tonemap(device=dev)
+    step, timer = make_step(cfg), StageTimer(dev)
+    before = alpha_lap.LAUNCHES
+    TT._march_lap = watched
+    try:
+        step(scene, cam, params, tm, init_frame_state(cfg, cam), timer=timer)
+        torch.cuda.synchronize()
+    finally:
+        TT._march_lap = lap
+    counted = alpha_lap.LAUNCHES - before
+    selects = sum(1 for s in timer.spans() if s[:2] == ("sync",
+                                                       "march.select"))
+    if not sizes or counted != len(sizes) or counted != selects:
+        fail(f"lap: {counted} laps through the kernels, {len(sizes)} laps, "
+             f"{selects} march.select spans in the frame")
+    sc, hop, sel, band0, max_steps, occl = big["args"]
+    tables = TT._alpha_tables(sc)
+    fresh = lambda: type(band0)(*[a.clone() for a in band0])
+    got = alpha_lap.lap_prep(sel, band0, tables, hop.walk, occl)
+    want = TT._lap_prep_ref(sc, hop, sel, band0, occl)
+    prep_eq = [f for f, a, b in zip(type(got)._fields, got, want)
+               if not torch.equal(a, b)]
+    rec2 = closest_hit_sorted(hop, got.o, got.d, got.tn, got.tx,
+                              max_steps=max_steps, order=sort_order(got.keys))
+    b_k, b_p = fresh(), fresh()
+    alpha_lap.lap_merge(sel, b_k, rec2, got, occl)
+    TT._lap_merge_ref(sel, b_p, rec2, want, occl)
+    merge_eq = [f for f, a, b in zip(type(b_k)._fields, b_k, b_p)
+                if not torch.equal(a, b)]
+
+    def plain_lap(band):
+        lap = TT._lap_prep_ref(sc, hop, sel, band, occl)
+        TT._lap_merge_ref(sel, band, closest_hit_sorted(
+            hop, lap.o, lap.d, lap.tn, lap.tx, max_steps=max_steps,
+            order=sort_order(lap.keys)), lap, occl)
+
+    kern_lap = lambda band: TT._march_lap(sc, hop, sel, band, max_steps,
+                                          occl)
+    b_k, b_p = fresh(), fresh()
+    kern_lap(b_k)
+    plain_lap(b_p)
+    lap_eq = [f for f, a, b in zip(type(b_k)._fields, b_k, b_p)
+              if not torch.equal(a, b)]
+    if prep_eq or merge_eq or lap_eq:
+        fail(f"lap: kernels differ from the plain lap (prep {prep_eq}, "
+             f"merge {merge_eq}, whole lap {lap_eq}); the tolerance is "
+             "bitwise")
+    # timed and profiled in place on one band each (the band changes from
+    # one repetition to the next, the work a lane does not); prep + merge
+    # alone on a fixed re-trace record
+    kern_ms = time_ms(lambda: alpha_lap.lap_merge(
+        sel, b_k, rec2, alpha_lap.lap_prep(sel, b_k, tables, hop.walk, occl),
+        occl), 10)
+    plain_ms = time_ms(lambda: TT._lap_merge_ref(
+        sel, b_p, rec2, TT._lap_prep_ref(sc, hop, sel, b_p, occl), occl), 10)
+    kern_lap_ms = time_ms(lambda: kern_lap(b_k), 5)
+    plain_lap_ms = time_ms(lambda: plain_lap(b_p), 5)
+    kern_kernels = _profiled_kernels(lambda: kern_lap(b_k))
+    plain_kernels = _profiled_kernels(lambda: plain_lap(b_p))
+    n = big["n"]
+    n_inst = 0 if tables.tri_base is None else tables.tri_base.shape[0]
+    tex = tables.tex_data
+    nbytes = _lap_bytes(n, n_inst, not (tex.shape[0] == tex.shape[1] == 1))
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    closest = [m for m, o in sizes if not o]
+    occlusion = [m for m, o in sizes if o]
+    print(f"lap (standin 1920x1080 frame 0): {len(sizes)} laps, "
+          f"{len(closest)} closest ({sum(closest)} lanes) and "
+          f"{len(occlusion)} occlusion ({sum(occlusion)} lanes), as many "
+          f"as the march.select spans and alpha_lap.LAUNCHES; largest lap "
+          f"{n} lanes ({'occlusion' if occl else 'closest'}, {n_inst} "
+          f"instances): prep + merge bitwise equal to the plain lap (the "
+          f"compact rays, keys, scratch and the band), the whole lap too; "
+          f"kernels {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s); the whole lap "
+          f"{kern_lap_ms:.4f} ms through the kernels, {plain_lap_ms:.4f} ms "
+          f"plain; device kernels a lap {kern_kernels} through the "
+          f"kernels, {plain_kernels} plain (profiler)", flush=True)
 
 
 def entry_phase() -> None:

@@ -204,14 +204,21 @@ def _sort_bands(R: int) -> int:
 
 
 def make_ray_order(bvh: BVH, o, d, dead):
-    """(perm, inv) ordering rays by their sort key (a stable sort; the
-    inverse permutation comes from a scatter).  The order can be reused by
-    later traversals whose rays share (approximately) the same origins.
-    Any permutation gives the same hits: the sort only serves speed.
-    Under a band context perm and inv are (B, R/B) band-local indices."""
+    """(perm, inv) ordering rays by their sort key (`sort_order`).  The
+    order can be reused by later traversals whose rays share
+    (approximately) the same origins.  Any permutation gives the same
+    hits: the sort only serves speed."""
     R = int(o.numel() // 3)
-    keys = ray_sort_keys(bvh, o.reshape(R, 3), d.reshape(R, 3),
-                         dead.reshape(R))
+    return sort_order(ray_sort_keys(bvh, o.reshape(R, 3), d.reshape(R, 3),
+                                    dead.reshape(R)))
+
+
+def sort_order(keys):
+    """(perm, inv) of flat sort keys: a stable sort, the inverse
+    permutation from a scatter.  Under a band context that splits the R
+    keys into whole packets (`_sort_bands`) perm and inv are (B, R/B)
+    band-local indices."""
+    R = keys.numel()
     B = _sort_bands(R)
     perm = torch.sort(keys.reshape(B, R // B), dim=1, stable=True).indices
     inv = torch.empty_like(perm)

@@ -13,6 +13,9 @@ and the hops run in the alpha BVH only.  The hop loop runs on a
 compacted queue of the rays that still need a test (`_alpha_march`, the
 default on the card) or in lockstep over all rays (the default on the
 CPU, as in the JAX package); on MASK materials both give the same hits.
+A lap of the queue (`_march_lap`) is the kernels of ops/alpha_lap.py
+around the sort and the walk on the card, their plain versions here
+(`_lap_prep_ref`, `_lap_merge_ref`) on the CPU.
 Under EIDOLA_ALPHA_CULL=1 the rays whose segment misses the alpha BVH's
 cover boxes (`_reach_boxes`) are killed before the alpha traversal.
 `trace_radiance` is the estimator core the GI stage drives from
@@ -26,12 +29,16 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import alpha_lap
 from ..ops import rng as erng
+from ..ops.alpha_lap import AlphaTables, Band, Lap
+from ..ops.bvh import HitRecord
 from ..ops.halo import get_bands
 from ..ops.math import (dot3, make_frame, offset_ray, power_heuristic,
                         to_local, to_world)
 from ..ops.packets import (any_hit_img, any_hit_sorted, closest_hit_img,
-                           closest_hit_sorted, make_ray_order)
+                           closest_hit_sorted, make_ray_order, ray_sort_keys,
+                           sort_order)
 from ..scene.data import ALPHA_BLEND, ALPHA_MASK, SceneData, shade_row
 from ..scene.textures import sample_bilinear
 from ..utils import profiler
@@ -101,20 +108,22 @@ def _alpha_march(scene: SceneData, hop_bvh, o, d, a_tmax, rec0, rng_state,
     """The HitTest hop loop on a compacted queue (tracer.py:95-257): each
     lap takes up to `cap` rays whose record is an untested alpha hit
     (`torch.nonzero`, in index order), runs the alpha test and the
-    re-trace at that width, and scatters the results back.  Per ray the
-    same tests and re-traces as the lockstep loop; only the BLEND rng
-    stream differs (one draw per queued test, not per lane per hop).
-    occl=True counts `budget` tests (a solid hit occludes); occl=False
-    counts `budget` re-traces, whose last hit may stand untested.  Under a
-    band context that splits the rays into whole packets the march runs
-    band by band, each band with its own queue (the JAX package's vmap
-    over bands): per ray the hops and the BLEND draws do not change.
-    Returns (rng_state, rec, occluded) shaped like rec0."""
+    re-trace at that width, and scatters the results back (`_march_lap`).
+    Per ray the same tests and re-traces as the lockstep loop; only the
+    BLEND rng stream differs (one draw per queued test, not per lane per
+    hop).  occl=True counts `budget` tests (a solid hit occludes);
+    occl=False counts `budget` re-traces, whose last hit may stand
+    untested.  Under a band context that splits the rays into whole
+    packets the march runs band by band, each band with its own queue (the
+    JAX package's vmap over bands): per ray the hops and the BLEND draws do
+    not change.  Returns (rng_state, rec, occluded) shaped like rec0."""
     shape = tuple(rec0.t.shape)
     R = rec0.t.numel()
     dev = rec0.t.device
     tmax_f = torch.broadcast_to(torch.as_tensor(a_tmax, dtype=torch.float32,
-                                                device=dev), shape).reshape(R)
+                                                device=dev), shape
+                                ).reshape(R).contiguous()
+    o_f, d_f = o.reshape(R, 3).contiguous(), d.reshape(R, 3).contiguous()
     rec = [x.reshape(R).clone() for x in rec0]
     rng_f = rng_state.reshape(R).clone()
     B = get_bands()
@@ -124,9 +133,9 @@ def _alpha_march(scene: SceneData, hop_bvh, o, d, a_tmax, rec0, rng_state,
     occluded = torch.zeros(R, dtype=torch.bool, device=dev)
     for b in range(B):      # views: each band's march writes in place
         s = slice(b * Rl, (b + 1) * Rl)
-        _march_band(scene, hop_bvh, o.reshape(R, 3)[s], d.reshape(R, 3)[s],
-                    tmax_f[s], [x[s] for x in rec], rng_f[s], occluded[s],
-                    type(rec0), budget, max_steps, occl, _march_caps(Rl, B))
+        _march_band(scene, hop_bvh, o_f[s], d_f[s], tmax_f[s],
+                    [x[s] for x in rec], rng_f[s], occluded[s], budget,
+                    max_steps, occl, _march_caps(Rl, B))
     rec = type(rec0)(*[x.reshape(shape) for x in rec])
     return rng_f.reshape(shape), rec, occluded.reshape(shape)
 
@@ -137,39 +146,88 @@ def _pending_count(pending) -> int:
 
 
 def _march_band(scene, hop_bvh, o_f, d_f, tmax_f, rec, rng_f, occluded,
-                rec_type, budget, max_steps, occl, caps):
+                budget, max_steps, occl, caps):
     """The hop loop over one band of flat rays; updates rec (a list of
     flat planes), rng_f and occluded in place."""
     pending = rec[0] >= 0
     if not occl and budget <= 0:
         pending = torch.zeros_like(pending)
-    bleft = torch.where(pending, budget, 0)
+    band = Band(o_f, d_f, tmax_f, *rec, rng_f, pending, occluded,
+                torch.where(pending, budget, 0))
     for k, cap in enumerate(caps):
         nxt = caps[k + 1] if k + 1 < len(caps) else 0
         while _pending_count(pending) > nxt:
             with profiler.sync("march.select"):
                 sel = torch.nonzero(pending)[:cap, 0]
-            rec_sel = rec_type(*[x[sel] for x in rec])
-            rng_new, pt = _alpha_passthrough(scene, rec_sel, rng_f[sel])
-            b_sel = bleft[sel]
-            if occl:
-                b_sel = b_sel - 1                  # a test consumed
-                occ_new = ~pt                      # a solid hit occludes
-                go = pt & (b_sel > 0)
-            else:
-                occ_new = torch.zeros_like(pt)
-                go = pt                            # pending => b_sel > 0
-                b_sel = b_sel - go.long()          # a re-trace consumed
-            tn = torch.where(go, rec_sel.t * (1.0 + 1e-4) + 1e-5, 1.0)
-            tx = torch.where(go, tmax_f[sel], -1.0)
-            rec2 = closest_hit_sorted(hop_bvh, o_f[sel], d_f[sel], tn, tx,
-                                      max_steps=max_steps)
-            for x, a, b in zip(rec, rec_sel, rec2):
-                x[sel] = torch.where(go, b, a)
-            rng_f[sel] = rng_new
-            pending[sel] = go & (rec2.tri >= 0) & (occl | (b_sel > 0))
-            occluded[sel] |= occ_new
-            bleft[sel] = b_sel
+            _march_lap(scene, hop_bvh, sel, band, max_steps, occl)
+
+
+def _alpha_tables(scene: SceneData) -> AlphaTables:
+    """The scene arrays `alpha_lap.lap_prep`'s alpha test reads."""
+    m, tex, inst = scene.materials, scene.textures, scene.inst
+    return AlphaTables(
+        scene.tri_mat, scene.tri_uv, m.base_color, m.base_tex, m.alpha_mode,
+        m.alpha_cutoff, tex.data, tex.size, tex.wrap,
+        *(() if inst is None else (inst.tri_base, inst.attr_base)))
+
+
+def _march_lap(scene, hop_bvh, sel, band: Band, max_steps: int,
+               occl: bool) -> None:
+    """One lap over the queued band indices `sel`: the alpha test and the
+    compaction (`_lap_prep`), the re-trace of the rays it passed through in
+    the hop BVH (a sorted wavefront), the scatter back (`_lap_merge`)."""
+    lap = _lap_prep(scene, hop_bvh, sel, band, occl)
+    rec2 = closest_hit_sorted(hop_bvh, lap.o, lap.d, lap.tn, lap.tx,
+                              max_steps=max_steps, order=sort_order(lap.keys))
+    _lap_merge(sel, band, rec2, lap, occl)
+
+
+def _lap_prep(scene, hop_bvh, sel, band: Band, occl: bool) -> Lap:
+    """The kernel (ops/alpha_lap.py) on the card, the plain lap on the
+    CPU; any other device raises."""
+    if sel.device.type == "cpu":
+        return _lap_prep_ref(scene, hop_bvh, sel, band, occl)
+    return alpha_lap.lap_prep(sel, band, _alpha_tables(scene), hop_bvh.walk,
+                              occl)
+
+
+def _lap_merge(sel, band: Band, rec2, lap: Lap, occl: bool) -> None:
+    if sel.device.type == "cpu":
+        return _lap_merge_ref(sel, band, rec2, lap, occl)
+    return alpha_lap.lap_merge(sel, band, rec2, lap, occl)
+
+
+def _lap_prep_ref(scene, hop_bvh, sel, band: Band, occl: bool) -> Lap:
+    """The plain version of `alpha_lap.lap_prep`: the alpha test of the
+    queued records, each lane's budget and re-trace segment, the compact
+    rays and their sort keys."""
+    rec_sel = HitRecord(band.tri[sel], band.t[sel], band.u[sel],
+                        band.v[sel])
+    rng_new, pt = _alpha_passthrough(scene, rec_sel, band.rng[sel])
+    b_sel = band.bleft[sel]
+    if occl:
+        b_sel = b_sel - 1                  # a test consumed
+        occ_new = ~pt                      # a solid hit occludes
+        go = pt & (b_sel > 0)
+    else:
+        occ_new = torch.zeros_like(pt)
+        go = pt                            # pending => b_sel > 0
+        b_sel = b_sel - go.long()          # a re-trace consumed
+    tn = torch.where(go, rec_sel.t * (1.0 + 1e-4) + 1e-5, 1.0)
+    tx = torch.where(go, band.tmax[sel], -1.0)
+    o, d = band.o[sel], band.d[sel]
+    return Lap(o, d, tn, tx, ray_sort_keys(hop_bvh, o, d, tx < tn), go,
+               occ_new, b_sel, rng_new)
+
+
+def _lap_merge_ref(sel, band: Band, rec2, lap: Lap, occl: bool) -> None:
+    """The plain version of `alpha_lap.lap_merge` (no count)."""
+    for x, b in zip(band[3:7], rec2):
+        x[sel] = torch.where(lap.go, b, x[sel])
+    band.rng[sel] = lap.rng
+    band.pending[sel] = lap.go & (rec2.tri >= 0) & (occl | (lap.bleft > 0))
+    band.occluded[sel] |= lap.occ
+    band.bleft[sel] = lap.bleft
 
 
 # ray-box pairs per batch of _reach_boxes: 2M rays x 8 boxes

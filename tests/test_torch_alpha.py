@@ -16,6 +16,11 @@ split (scene/data.py) against the JAX package's.
   staged capacities 32768 -> 8192 to run several laps), and mini_grove.
 - In both march modes, rays that miss the alpha set or pass through it
   get the opaque half's hits and occlusion.
+- The queue march through `_march_lap` (the plain lap the CPU runs)
+  against the march as it was before its lap was factored out, kept
+  verbatim here: each lap's re-traced rays and order, then records, rng
+  words and occlusion, bit for bit; the lap kernels' wrappers refuse
+  what the kernels do not take.
 - The headless entry point turns the HitTest on from the scene and
   renders `alpha` and `mini_grove` on the CPU; its device defaults to
   cuda.
@@ -403,3 +408,205 @@ def test_blend_queue_march_matches_jax(monkeypatch):
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
     inside = (np.abs(o[:, :2]) < 2.0).all(1)
     assert occ.numpy()[inside].any() and not occ.numpy()[inside].all()
+
+
+def _march_before(scene, hop_bvh, o, d, a_tmax, rec0, rng_state, budget,
+                  max_steps, occl, closest_hit_sorted):
+    """render/tracer.py's `_alpha_march` and `_march_band` as they were
+    before a lap became `_march_lap` (one lap = the alpha test, the
+    re-trace and the scatter inline), verbatim but for the module prefix
+    and the re-trace, passed in: the reference the plain lap is held to."""
+    from eidola_tpu_torch.ops.halo import get_bands
+    from eidola_tpu_torch.utils import profiler
+
+    def _march_band(scene, hop_bvh, o_f, d_f, tmax_f, rec, rng_f, occluded,
+                    rec_type, budget, max_steps, occl, caps):
+        pending = rec[0] >= 0
+        if not occl and budget <= 0:
+            pending = torch.zeros_like(pending)
+        bleft = torch.where(pending, budget, 0)
+        for k, cap in enumerate(caps):
+            nxt = caps[k + 1] if k + 1 < len(caps) else 0
+            while TT._pending_count(pending) > nxt:
+                with profiler.sync("march.select"):
+                    sel = torch.nonzero(pending)[:cap, 0]
+                rec_sel = rec_type(*[x[sel] for x in rec])
+                rng_new, pt = TT._alpha_passthrough(scene, rec_sel,
+                                                    rng_f[sel])
+                b_sel = bleft[sel]
+                if occl:
+                    b_sel = b_sel - 1                  # a test consumed
+                    occ_new = ~pt                      # a solid hit occludes
+                    go = pt & (b_sel > 0)
+                else:
+                    occ_new = torch.zeros_like(pt)
+                    go = pt                            # pending => b_sel > 0
+                    b_sel = b_sel - go.long()          # a re-trace consumed
+                tn = torch.where(go, rec_sel.t * (1.0 + 1e-4) + 1e-5, 1.0)
+                tx = torch.where(go, tmax_f[sel], -1.0)
+                rec2 = closest_hit_sorted(hop_bvh, o_f[sel], d_f[sel], tn,
+                                          tx, max_steps=max_steps)
+                for x, a, b in zip(rec, rec_sel, rec2):
+                    x[sel] = torch.where(go, b, a)
+                rng_f[sel] = rng_new
+                pending[sel] = go & (rec2.tri >= 0) & (occl | (b_sel > 0))
+                occluded[sel] |= occ_new
+                bleft[sel] = b_sel
+
+    shape = tuple(rec0.t.shape)
+    R = rec0.t.numel()
+    dev = rec0.t.device
+    tmax_f = torch.broadcast_to(torch.as_tensor(a_tmax, dtype=torch.float32,
+                                                device=dev), shape).reshape(R)
+    rec = [x.reshape(R).clone() for x in rec0]
+    rng_f = rng_state.reshape(R).clone()
+    B = get_bands()
+    if not (B > 1 and R % B == 0 and (R // B) % 128 == 0):
+        B = 1
+    Rl = R // B
+    occluded = torch.zeros(R, dtype=torch.bool, device=dev)
+    for b in range(B):      # views: each band's march writes in place
+        s = slice(b * Rl, (b + 1) * Rl)
+        _march_band(scene, hop_bvh, o.reshape(R, 3)[s], d.reshape(R, 3)[s],
+                    tmax_f[s], [x[s] for x in rec], rng_f[s], occluded[s],
+                    type(rec0), budget, max_steps, occl,
+                    TT._march_caps(Rl, B))
+    rec = type(rec0)(*[x.reshape(shape) for x in rec])
+    return rng_f.reshape(shape), rec, occluded.reshape(shape)
+
+
+def _lap_scene(kind):
+    """(scene, o, d) for the lap cases: `flat` the alpha screen (textured
+    MASK), `instanced` mini_grove (instanced trees, textured MASK leaf
+    cards in a flat alpha BVH), `untextured` the stacked quads at base
+    alpha 0.4 (the 1x1 texture stack; MASK passes every hit)."""
+    if kind == "untextured":
+        n = 512
+        r = np.random.default_rng(11)
+        o = np.concatenate([r.uniform(-2.5, 2.5, (n, 2)),
+                            np.full((n, 1), 4.0)], 1).astype(np.float32)
+        d = np.tile([0.0, 0.0, -1.0], (n, 1)).astype(np.float32)
+        return _stacked_quads(0.4), torch.from_numpy(o), torch.from_numpy(d)
+    name, center, spread = {"flat": SCENES["alpha"],
+                            "instanced": SCENES["mini_grove"]}[kind]
+    scene, _ = getattr(TS, name)(device=CPU)
+    o, d = _rays(center, spread, n=512, seed=8)
+    return scene, torch.from_numpy(o), torch.from_numpy(d)
+
+
+@pytest.fixture(scope="module")
+def lap_scenes():
+    return {k: _lap_scene(k) for k in ("flat", "instanced", "untextured")}
+
+
+def _as_blend(scene):
+    am = scene.materials.alpha_mode
+    return scene._replace(materials=scene.materials._replace(
+        alpha_mode=torch.where(am == TD.ALPHA_MASK, TD.ALPHA_BLEND, am)))
+
+
+@pytest.mark.parametrize("bands", [1, 2])
+@pytest.mark.parametrize("kind", ["flat", "instanced", "untextured"])
+@pytest.mark.parametrize("mode", ["mask", "blend"])
+@pytest.mark.parametrize("budget", [0, 1, 4])
+@pytest.mark.parametrize("occl", [False, True], ids=["closest", "occl"])
+def test_plain_lap_matches_march_before(lap_scenes, occl, budget, mode, kind,
+                                        bands, monkeypatch):
+    """The queue march through `_march_lap` (the plain lap the CPU runs:
+    `_lap_prep_ref`, the sort of its keys, the sorted walk,
+    `_lap_merge_ref`) equals the march as it was before, bit for bit:
+    each lap's re-traced rays (o, d, t_min, t_max) and their wavefront
+    order, then the records, rng words and occlusion.  Budgets 0, 1 and
+    alpha_hops (4), occlusion and closest hit, MASK and BLEND, on a flat,
+    an instanced and an untextured scene, unbanded and in 2 bands; the lap
+    capacities cut to [128, 64] so a band takes several partial laps."""
+    from eidola_tpu_torch.ops.halo import band_context
+    from eidola_tpu_torch.ops.packets import (closest_hit_sorted,
+                                              make_ray_order)
+
+    def recorded(calls, ordered):
+        def trace(bvh, o, d, tn, tx, max_steps, order=None):
+            if ordered:             # the lap's order is the door's own
+                want = make_ray_order(bvh, o, d, tx < tn)
+                assert all(torch.equal(a, b) for a, b in zip(order, want))
+            calls.append((o, d, tn, tx))
+            return closest_hit_sorted(bvh, o, d, tn, tx, max_steps=max_steps,
+                                      order=order)
+        return trace
+
+    assert RenderConfig().alpha_hops == 4
+    scene, o, d = lap_scenes[kind]
+    if mode == "blend":
+        scene = _as_blend(scene)
+    hop = scene.bvh_alpha
+    n = o.shape[0]
+    tmin = torch.full((n,), 1e-4)
+    tmax = torch.full((n,), 5.0 if occl else 1e8)
+    rec0 = closest_hit_sorted(hop, o, d, tmin, tmax, max_steps=2048)
+    rng = trng.seed_pixels(1, n, 13, device=CPU)[0]
+    monkeypatch.setattr(TT, "_march_caps", lambda R, B=1: [128, 64])
+    laps, got_calls, want_calls = [], [], []
+    lap = TT._march_lap
+    monkeypatch.setattr(TT, "_march_lap",
+                        lambda *a: laps.append(a[2].numel()) or lap(*a))
+    monkeypatch.setattr(TT, "closest_hit_sorted", recorded(got_calls, True))
+    with band_context(bands):
+        got = TT._alpha_march(scene, hop, o, d, tmax, rec0, rng, budget,
+                              2048, occl)
+        want = _march_before(scene, hop, o, d, tmax, rec0, rng, budget,
+                             2048, occl, recorded(want_calls, False))
+    assert len(got_calls) == len(want_calls) == len(laps)
+    for a, b in zip(got_calls, want_calls):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for a, b in zip([got[0], *got[1], got[2]], [want[0], *want[1], want[2]]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if budget > 0 or occl:
+        assert laps and max(laps) <= 128, laps
+        assert bool((rec0.tri >= 0).any())
+    else:                       # no re-trace budget: nothing is queued
+        assert laps == []
+
+
+def _lap_args(dev=CPU):
+    """Valid arguments of ops/alpha_lap.lap_prep and lap_merge on `dev`: a
+    band of 256 rays, 128 queued, a one-triangle table."""
+    from eidola_tpu_torch.ops import alpha_lap as AL
+
+    R, n = 256, 128
+    f = lambda *s: torch.zeros(s, device=dev)
+    i = lambda *s: torch.zeros(s, dtype=torch.int64, device=dev)
+    b = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
+    band = AL.Band(f(R, 3), f(R, 3), f(R), i(R), f(R), f(R), f(R), i(R),
+                   b(R), b(R), i(R))
+    tables = AL.AlphaTables(i(1), f(1, 3, 2), f(1, 4), i(1), i(1), f(1),
+                            f(1, 1, 2, 4), i(1, 2), i(1, 2))
+    lap = AL.Lap(f(n, 3), f(n, 3), f(n), f(n), i(n), b(n), b(n), i(n), i(n))
+    rec2 = TB.HitRecord(i(n), f(n), f(n), f(n))
+    return AL, i(n), band, tables, f(3, 8), lap, rec2
+
+
+@pytest.mark.parametrize("fault", ["dtype", "contiguous", "devices",
+                                   "instances", "cpu"])
+def test_alpha_lap_wrappers_check_their_arguments(fault):
+    """The kernels' wrappers raise before any launch: a wrong dtype, a
+    non-contiguous plane, tensors on two devices, a tri_base without its
+    attr_base, and (all else right) CPU tensors, which the plain lap
+    takes."""
+    AL, sel, band, tables, walk, lap, rec2 = _lap_args()
+    msg = {"dtype": "must be torch.int64", "contiguous": "contiguous",
+           "devices": "all inputs must be on", "instances": "come together",
+           "cpu": "takes CUDA tensors"}[fault]
+    if fault == "dtype":
+        sel = sel.to(torch.int32)
+    elif fault == "contiguous":
+        band = band._replace(t=torch.zeros(512)[::2])
+    elif fault == "devices":
+        band = band._replace(rng=band.rng.to("meta"))
+    elif fault == "instances":
+        tables = tables._replace(tri_base=torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match=msg):
+        AL.lap_prep(sel, band, tables, walk, occl=False)
+    if fault != "instances":
+        with pytest.raises(ValueError, match=msg):
+            AL.lap_merge(sel, band, rec2, lap, occl=True)
+    assert AL.LAUNCHES == 0

@@ -13,7 +13,11 @@ threshold, all-dead and all-hit warps); the walk kernel
 against `walk_ref` with group=1 (its one-block-per-packet semantics), on
 flat and instanced BVHs, the options' SBVH and instanced alpha BVH
 among them, outputs and per-packet step and event counts alike; the
-compacted torch walk against the uncompacted one.
+compacted torch walk against the uncompacted one; the alpha march's lap
+kernels (`lap_prep`, `lap_merge`) against the plain lap on every lap of
+a standin frame at 1920x1080 and on small flat, instanced and
+untextured scenes under MASK and BLEND, whole frames alike, and their
+launch count against the march's select spans.
 """
 import os
 
@@ -793,3 +797,224 @@ def test_every_sync_of_an_alpha_frame_is_spanned(cuda):
         spanned[s[1]] = spanned.get(s[1], 0) + 1
     assert spanned.get("march.count", 0) > 0
     assert seen == spanned
+
+
+def _leaves(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def _plain_laps(monkeypatch):
+    """Route the queue march's laps through the plain lap on the card."""
+    from eidola_tpu_torch.render import tracer as TT
+
+    monkeypatch.setattr(TT, "_lap_prep", TT._lap_prep_ref)
+    monkeypatch.setattr(TT, "_lap_merge", TT._lap_merge_ref)
+
+
+def _hold_laps(monkeypatch) -> list:
+    """Every lap of the queue march runs from one state twice, through
+    lap_prep + lap_merge and through the plain lap: the compact rays,
+    keys and scratch, then the band after the whole lap, bitwise.  Returns
+    the (lanes, occl) of each lap held."""
+    from eidola_tpu_torch.ops import alpha_lap
+    from eidola_tpu_torch.ops.packets import closest_hit_sorted, sort_order
+    from eidola_tpu_torch.render import tracer as TT
+
+    held, lap = [], TT._march_lap
+
+    def checked(sc, hop, sel, band, max_steps, occl):
+        plain = type(band)(*[a.clone() for a in band])
+        got = alpha_lap.lap_prep(sel, band, TT._alpha_tables(sc), hop.walk,
+                                 occl)
+        want = TT._lap_prep_ref(sc, hop, sel, plain, occl)
+        for f, a, b in zip(got._fields, got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+        lap(sc, hop, sel, band, max_steps, occl)
+        TT._lap_merge_ref(sel, plain, closest_hit_sorted(
+            hop, want.o, want.d, want.tn, want.tx, max_steps=max_steps,
+            order=sort_order(want.keys)), want, occl)
+        for f, a, b in zip(band._fields, band, plain):
+            assert torch.equal(a, b), f
+        held.append((sel.numel(), occl))
+
+    monkeypatch.setattr(TT, "_march_lap", checked)
+    return held
+
+
+@pytest.fixture(scope="module")
+def standin_1080():
+    """bistro_standin on the card with bench.py's 1920x1080 config."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from eidola_tpu_torch import bench
+    from eidola_tpu_torch.models.scenes import load_scene
+
+    scene, cam = load_scene("bistro_standin", device=torch.device("cuda"))
+    return scene, cam, bench.frame_cfg(scene, 1920, 1080)
+
+
+def _frames(scene, cam, cfg, n, timer=None):
+    from eidola_tpu_torch.render.config import (default_params,
+                                                default_tonemap)
+    from eidola_tpu_torch.render.frame import init_frame_state, make_step
+
+    dev = cam.pos.device
+    params, tm = default_params(device=dev), default_tonemap(device=dev)
+    state, step = init_frame_state(cfg, cam), make_step(cfg)
+    for _ in range(n):
+        state, out = step(scene, cam, params, tm, state, timer=timer)
+    torch.cuda.synchronize()
+    return state, out
+
+
+@pytest.mark.cuda
+def test_alpha_lap_kernels_match_plain_on_standin_laps(standin_1080,
+                                                       monkeypatch):
+    """Every lap of a standin frame at 1920x1080 (the queue march, the
+    card's default), closest and occlusion: lap_prep + lap_merge equal the
+    plain lap bit for bit."""
+    monkeypatch.delenv("EIDOLA_ALPHA_MARCH", raising=False)
+    held = _hold_laps(monkeypatch)
+    _frames(*standin_1080, 1)
+    assert {o for _, o in held} == {False, True}, held
+    assert max(n for n, _ in held) > 4096, held
+
+
+def _trace_case(kind, dev):
+    """(scene, o, d, t_max of the shadow rays) for the small lap cases:
+    mini_grove with its MASK leaf cards made BLEND (instanced, textured),
+    the alpha screen (flat, textured MASK), the stacked quads (untextured
+    MASK at base alpha 0.4, and BLEND at 0.5)."""
+    from eidola_tpu_torch.models import scenes as TS
+    from eidola_tpu_torch.scene import data as TD
+
+    rng = np.random.default_rng(23)
+    n = 4096
+    if kind.startswith("untextured"):
+        blend = kind.endswith("blend")
+        quads = [TS.quad_tris([-2, -2, z], [2, -2, z], [2, 2, z],
+                              [-2, 2, z]) for z in (1.0, 1.3, 1.6)]
+        box = TS.box_tris([0, 0, -1.0], [0.5, 0.5, 0.5])
+        tris = np.concatenate(quads + [box])
+        nq = sum(q.shape[0] for q in quads)
+        mats = np.concatenate([np.zeros(nq, np.int32),
+                               np.ones(box.shape[0], np.int32)])
+        scene = TD.upload_scene(
+            tris[:, 0], tris[:, 1], tris[:, 2], device=dev, mat_ids=mats,
+            materials=[{"base_color": [1, 1, 1, 0.5 if blend else 0.4],
+                        "alpha_mode": TD.ALPHA_BLEND if blend
+                        else TD.ALPHA_MASK, "alpha_cutoff": 0.5},
+                       {"base_color": [0.5, 0.2, 0.2, 1.0]}])
+        o = np.concatenate([rng.uniform(-2.5, 2.5, (n, 2)),
+                            np.full((n, 1), 4.0)], 1)
+        d = np.tile([0.0, 0.0, -1.0], (n, 1))
+        smax = 6.0
+    else:
+        name, center, spread = {
+            "mini_grove_blend": ("mini_grove", [0.0, 1.8, 0.0], 3.0),
+            "flat": ("alpha_demo", [0.0, 1.2, 0.0], 1.6)}[kind]
+        scene, _ = getattr(TS, name)(device=dev)
+        if kind == "mini_grove_blend":
+            am = scene.materials.alpha_mode
+            scene = scene._replace(materials=scene.materials._replace(
+                alpha_mode=torch.where(am == TD.ALPHA_MASK, TD.ALPHA_BLEND,
+                                       am)))
+        ang = rng.uniform(0, 2 * np.pi, n)
+        o = np.stack([6 * np.sin(ang), rng.uniform(0.5, 4, n),
+                      6 * np.cos(ang)], -1)
+        d = np.asarray(center) + rng.uniform(-spread, spread, (n, 3)) - o
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        smax = 8.0
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return scene, f32(o), f32(d), smax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mini_grove_blend", "flat", "untextured",
+                                  "untextured_blend"])
+def test_alpha_lap_kernels_match_plain_on_small_scenes(cuda, kind,
+                                                       monkeypatch):
+    """The same on 4,096 rays traced at a small scene, closest hits and
+    shadow rays through the queue march: mini_grove under BLEND (an
+    instanced scene), a flat textured scene, an untextured one (MASK and
+    BLEND); then the traces equal the plain lap's."""
+    from eidola_tpu_torch.ops import rng as trng
+    from eidola_tpu_torch.render import tracer as TT
+    from eidola_tpu_torch.render.config import RenderConfig
+
+    monkeypatch.setenv("EIDOLA_ALPHA_MARCH", "queue")
+    scene, o, d, smax = _trace_case(kind, cuda)
+    assert (scene.inst is not None) == (kind == "mini_grove_blend")
+    n = o.shape[0]
+    cfg = RenderConfig(width=64, height=64, alpha_geometry=True,
+                       traversal_max_steps=2048)
+    rng = trng.seed_pixels(1, n, 5, device=cuda)[0]
+    tmin = torch.full((n,), 1e-4, device=cuda)
+
+    def traces():
+        r1, rec = TT.trace_closest(cfg, scene, o, d, tmin,
+                                   torch.full_like(tmin, 1e8), rng)
+        r2, occ = TT.trace_occlusion(cfg, scene, o, d, tmin,
+                                     torch.full_like(tmin, smax), rng)
+        return [r1, *rec, r2, occ]
+
+    with monkeypatch.context() as mp:
+        held = _hold_laps(mp)
+        got = traces()
+    assert {oc for _, oc in held} == {False, True}, held
+    with monkeypatch.context() as mp:
+        _plain_laps(mp)
+        want = traces()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert 0 < int(got[-1].sum()) < n
+
+
+@pytest.mark.cuda
+def test_standin_frame_with_lap_kernels_is_the_plain_laps(standin_1080,
+                                                          monkeypatch):
+    """Two standin frames at 1920x1080 through the lap kernels equal, bit
+    for bit, the same frames with the plain lap monkeypatched in: image,
+    linear light and the carried state."""
+    monkeypatch.delenv("EIDOLA_ALPHA_MARCH", raising=False)
+    got = _frames(*standin_1080, 2)
+    with monkeypatch.context() as mp:
+        _plain_laps(mp)
+        want = _frames(*standin_1080, 2)
+    a, b = list(_leaves(got)), list(_leaves(want))
+    assert len(a) == len(b) > 10
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_alpha_lap_launches_are_the_march_selects(standin_1080):
+    """alpha_lap.LAUNCHES over a standin frame equals the frame's
+    march.select spans (one per lap), and stays 0 over a cornell frame
+    (no alpha geometry: no march)."""
+    from eidola_tpu_torch import bench
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.ops import alpha_lap
+    from eidola_tpu_torch.utils.profiler import StageTimer
+
+    scene, cam, cfg = standin_1080
+    counts = []
+    for sc, cm, cf in ((scene, cam, cfg), (*load_scene(
+            "cornell", device=cam.pos.device), None)):
+        cf = cf or bench.frame_cfg(sc, 320, 240)
+        timer = StageTimer(cm.pos.device)
+        before = alpha_lap.LAUNCHES
+        _frames(sc, cm, cf, 1, timer=timer)
+        selects = sum(1 for s in timer.spans()
+                      if s[0] == "sync" and s[1] == "march.select")
+        counts.append((alpha_lap.LAUNCHES - before, selects))
+    (laps, selects), (flat_laps, flat_selects) = counts
+    assert laps == selects > 0, counts
+    assert flat_laps == flat_selects == 0, counts

@@ -116,19 +116,19 @@ def count_laps(monkeypatch) -> list:
     while more than caps[k + 1] are pending, so its size names its
     stage."""
     laps, sizes = [], []
-    band, passthrough = TT._march_band, TT._alpha_passthrough
+    band, lap = TT._march_band, TT._march_lap
 
     def counted_band(*args):
         n0 = len(sizes)
         band(*args)
         laps.append((list(args[-1]), sizes[n0:]))
 
-    def counted_passthrough(scene, rec_sel, rng):
-        sizes.append(rec_sel.t.numel())
-        return passthrough(scene, rec_sel, rng)
+    def counted_lap(scene, hop_bvh, sel, *args):
+        sizes.append(sel.numel())
+        return lap(scene, hop_bvh, sel, *args)
 
     monkeypatch.setattr(TT, "_march_band", counted_band)
-    monkeypatch.setattr(TT, "_alpha_passthrough", counted_passthrough)
+    monkeypatch.setattr(TT, "_march_lap", counted_lap)
     return laps
 
 
