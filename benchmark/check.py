@@ -17,7 +17,9 @@ reference (reference/):
   closest_mismatch   share of the sampled closest-hit rays (primary,
                      GI, path bounces) whose hit differs: hit against
                      miss, or t apart by more than T_REL (walk kernels,
-                     the alpha HitTest's march)
+                     the alpha HitTest's march); the reference takes the
+                     nearest hit with no far end, so a far end that the
+                     program cut short of it shows
   occluded_mismatch  share of the sampled shadow rays (DI, NEE) whose
                      occlusion differs (any-hit walks, the march)
   denoise_max_abs    the window's denoised direct and indirect light

@@ -7,7 +7,9 @@ configuration, mix and chips, as BENCHMARK.json has them, and the limits
 that decide `correct`).  Its metrics: the end-to-end and per-layer
 entries of BENCHMARK.json that take this cell (all cells when an entry
 has no `workloads` key); each per-layer metric is read by
-`metrics/<name>.py`.  A new cell, mix, configuration or metric is a new
+`metrics/<name>.py`.  The scene that the plain reference traces is
+`reference/scenes/<scene>.py`, found by the configuration's `scene`.  A
+new cell, mix, configuration, metric or scene of the reference is a new
 file: nothing here names one.
 """
 from __future__ import annotations

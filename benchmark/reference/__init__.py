@@ -3,8 +3,11 @@
 It is written apart from the program, in plain PyTorch, and imports
 nothing of it: each module says what it was written from.
 
-  scene.py      the cell's input, the procedural stand-in, made by the
-                benchmark from its fixed seeds: world-space triangles
+  scene.py      the cell's input, made by the benchmark: world-space
+                triangles of the scene scenes/<name>.py, found by the
+                configuration's `scene` (a new scene of the reference is
+                a new file); scenes/bistro_standin.py, the procedural
+                stand-in from its fixed seeds
   camera.py     the camera path and the primary rays (rng.py: the
                 frame's seeds and draws)
   trace.py      every ray against every triangle, with the leaf cards'
@@ -13,9 +16,9 @@ nothing of it: each module says what it was written from.
   precision.py  float64, or TF32 for the check's control
 
 `Reference` answers, for a frame of the cell, what the program's frame
-must give: the primary rays; the hit or the occlusion of any ray; the
-denoised image of a noisy one; the accumulated HDR and the LDR image of
-the denoised light.  It does not re-render the frame's sampling: the
+must give: the primary rays; the nearest hit of any ray, however far,
+or its occlusion within its span; the denoised image of a noisy one; the
+accumulated HDR and the LDR image of the denoised light.  It does not re-render the frame's sampling: the
 check hands it the rays, the noisy light and the accumulation history
 that the program's frame had (check.py says which).
 """
@@ -25,8 +28,8 @@ import torch
 
 from . import camera, image, rng
 from .precision import Precision
-from .scene import SCENES
-from .trace import Tracer
+from .scene import make as make_scene
+from .trace import INF, Tracer
 
 ALPHA_HOPS = 4          # RenderConfig.alpha_hops, the renderer's default
 
@@ -41,16 +44,14 @@ class Reference:
             if render.get(key, want) != want:
                 raise ValueError(f"the reference renders {key}={want!r}, "
                                  f"the configuration {render[key]!r}")
-        if config["scene"] not in SCENES:
-            raise KeyError(f"the reference makes {sorted(SCENES)}, not "
-                           f"{config['scene']!r}")
         self.device = torch.device(device)
         self.num = Precision(control)
         self.width, self.height = int(config["width"]), int(config["height"])
         self.levels = (int(render["denoise_direct_levels"]),
                        int(render["denoise_indirect_levels"]))
-        self.scene = scene if scene is not None else SCENES[config["scene"]](
-            **config.get("scene_args", {}), device=self.device)
+        self.scene = scene if scene is not None else make_scene(
+            config["scene"], device=self.device,
+            **config.get("scene_args", {}))
         self.path = camera.CameraPath(self.scene.view,
                                       float(traffic["orbit_rad"]),
                                       self.width, self.height, self.device)
@@ -70,7 +71,11 @@ class Reference:
                                    self.height, self.width, self.num)
 
     def closest(self, o, d, t_min, t_max):
-        return self.tracer.closest(o, d, t_min, t_max)
+        """The nearest hit beyond `t_min`, with no far end: a closest-hit
+        ray of the frame reaches past the scene, so a far end that the
+        program set short of the true hit (a seeded t_max) shows as a hit
+        missed.  `t_max` is the program's, and is not used."""
+        return self.tracer.closest(o, d, t_min, torch.full_like(t_max, INF))
 
     def occluded(self, o, d, t_min, t_max):
         return self.tracer.occluded(o, d, t_min, t_max)

@@ -2,15 +2,17 @@
 benchmark/tests; the repo's tests/ never collects them).
 
 `bench_copy` copies BENCHMARK.json and benchmark/ into a temporary
-directory and adds a cell there as files only: the configuration
-`standin_tiny` (bistro_standin at 2 x 2 lots, at 32x32, depth 2), the
-orbit mix of the viewer's traffic (`orbit`: 0.01 rad a frame,
-spatiotemporal ReSTIR, shadow cadence 4, the seeded primary, a closed
-loop) and the cell `standin_orbit_tiny`, with a per-layer metric of its
-own (`compose_ms`, read by a new file under metrics/); the stage metrics
-take the new cell too.  `run_copy` runs the harness's measure() of one
-of the copy's cells in a subprocess whose `benchmark` package is the
-copy's.
+directory and adds cells there as files only: the configuration
+`standin_tiny` (bistro_standin at 2 x 2 lots, at 32x32, depth 2) under
+the orbit mix (`traffic/orbit.json`: 0.01 rad a frame at the renderer's
+default settings, a closed loop) as the cell `standin_orbit_tiny`, with a
+per-layer metric of its own (`compose_ms`, read by a new file under
+metrics/); and a scene of the reference's own,
+`reference/scenes/alpha.py` (the program's `alpha` scene: an alpha-MASK
+screen before a box), with the configuration `alpha_tiny` and the cell
+`alpha_orbit_tiny`.  The stage metrics take the new cells too.  `run_copy` runs the harness's
+measure() of one of the copy's cells in a subprocess whose `benchmark`
+package is the copy's.
 """
 import json
 import os
@@ -30,17 +32,48 @@ TINY_LIMITS = {"ray_max_abs": 1e-5, "closest_mismatch": 0.02,
                "occluded_mismatch": 0.02, "denoise_max_abs": 1e-5,
                "image_max_abs": 1e-5, "state_max_rel": 1e-5}
 TINY_SCENE = {"target_mtris": 0.004}     # 2 x 2 lots, 15,874 triangles
-ORBIT = {"why": "the viewer's traffic: the camera orbits, one frame read "
-                "back before the next",
-         "warmup_frames": 2, "orbit_rad": 0.01,
-         "restir_mode": "spatiotemporal", "shadow_cadence": 4,
-         "primary_seed": True, "loop": "closed"}
+NEW_CELLS = ("standin_orbit_tiny", "alpha_orbit_tiny")
 COMPOSE_MS = '''"""compose and post a frame: StageTimer's compose_post."""
 
 
 def read(trace):
     ms = trace.stages.get("compose_post")
     return None if ms is None else ms / trace.stage_frames
+'''
+ALPHA_SCENE = '''"""The `alpha` scene: an alpha-MASK cut-out screen before a
+box on a floor, written from the JAX package's models/scenes.py:
+alpha_demo (a 32x32 checker of 4x4-texel squares, alpha 0 or 1, cutoff
+0.5)."""
+import numpy as np
+import torch
+
+from ..scene import Standin
+
+CORNERS = [(-1, -1, -1), (-1, -1, 1), (-1, 1, -1), (-1, 1, 1),
+           (1, -1, -1), (1, -1, 1), (1, 1, -1), (1, 1, 1)]
+FACES = [(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+         (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)]
+
+
+def quad(p0, p1, p2, p3):
+    return np.asarray([[p0, p1, p2], [p0, p2, p3]], np.float32)
+
+
+def make(*, device):
+    corners = (np.asarray(CORNERS, np.float32) * np.float32(0.6)
+               + np.asarray([0, 0.6, -0.6], np.float32))
+    box = corners[np.asarray(FACES)]
+    floor = quad([-6, 0, -6], [6, 0, -6], [6, 0, 6], [-6, 0, 6])
+    screen = quad([-1.5, 0, 1.2], [1.5, 0, 1.2], [1.5, 2.4, 1.2],
+                  [-1.5, 2.4, 1.2])
+    yy, xx = np.mgrid[0:32, 0:32]
+    f64 = dict(dtype=torch.float64, device=device)
+    return Standin(
+        opaque=torch.as_tensor(np.concatenate([box, floor]), **f64),
+        alpha=torch.as_tensor(screen, **f64),
+        alpha_uv=torch.as_tensor((screen[..., :2] + 1.5) / 3.0, **f64),
+        leaf_alpha=torch.as_tensor((yy // 4 + xx // 4) % 2, **f64),
+        cutoff=0.5, view=([0.0, 1.4, 4.6], [0.0, 0.9, 0.0], 45.0))
 '''
 
 
@@ -72,22 +105,26 @@ def bench_copy(tmp_path):
                 height=32)
     conf["render"] = dict(conf["render"], max_depth=2)
     _dump(b / "configs" / "standin_tiny.json", conf)
-    _dump(b / "traffic" / "orbit.json", ORBIT)
-    _dump(b / "workloads" / "standin_orbit_tiny.json",
-          {"config": "standin_tiny", "traffic": "orbit", "chips": 1,
-           "check": {"rays_per_call": 64}, "limits": TINY_LIMITS})
+    _dump(b / "configs" / "alpha_tiny.json",
+          dict(conf, name="alpha_tiny", scene="alpha", scene_args={}))
+    for cell, config in zip(NEW_CELLS, ("standin_tiny", "alpha_tiny")):
+        _dump(b / "workloads" / f"{cell}.json",
+              {"config": config, "traffic": "orbit", "chips": 1,
+               "check": {"rays_per_call": 64}, "limits": TINY_LIMITS})
     (b / "metrics" / "compose_ms.py").write_text(COMPOSE_MS)
+    (b / "reference" / "scenes" / "alpha.py").write_text(ALPHA_SCENE)
     with open(root / "BENCHMARK.json") as f:
         m = json.load(f)
-    m["configs"].append({"name": "standin_tiny", "source": "test",
-                         "file": "benchmark/configs/standin_tiny.json",
-                         "reduced": [], "why": "a cell added as files"})
-    m["workloads"].append({"name": "standin_orbit_tiny",
-                           "config": "standin_tiny", "traffic": "orbit",
-                           "chips": 1, "why": "a cell added as files"})
-    for x in m["per_layer"]:       # the new cell also takes the stages
+    for cell, config in zip(NEW_CELLS, ("standin_tiny", "alpha_tiny")):
+        m["configs"].append({"name": config, "source": "test",
+                             "file": f"benchmark/configs/{config}.json",
+                             "reduced": [], "why": "a cell added as files"})
+        m["workloads"].append({"name": cell, "config": config,
+                               "traffic": "orbit", "chips": 1,
+                               "why": "a cell added as files"})
+    for x in m["per_layer"]:       # the new cells also take the stages
         if x["source"] == "program_span":
-            x["workloads"].append("standin_orbit_tiny")
+            x["workloads"].extend(NEW_CELLS)
     m["per_layer"].append({"name": "compose_ms", "unit": "ms",
                            "better": "lower", "source": "program_span",
                            "layer": "compose and post: render/compose.py, "

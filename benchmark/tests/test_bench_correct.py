@@ -101,6 +101,12 @@ FAULTS = {
         "    def flipped(*a, _f=getattr(T, name), **k):\n"
         "        return ~_f(*a, **k)\n"
         "    setattr(T, name, flipped)")),
+    # the primary walk given a far end short of the scene, as a seeded
+    # t_max that cut off the true hit would give it
+    "primary_tmax_short": """
+import eidola_tpu_torch.render.direct as D
+D._TMAX = 8.0
+""",
     # the denoiser one level short
     "denoise_altered": """
 import eidola_tpu_torch.render.frame as F

@@ -11,6 +11,12 @@ from .conftest import REPO, run_copy
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "eidola_tpu"}
 REF = os.path.join(REPO, "benchmark", "reference")
+# the one module that imports by name: scene.py finds a scene's module
+# under reference/scenes/ (test_bench_scenes.py)
+LOOKUP = os.path.join(REF, "scene.py")
+# each scene of the reference at a size a test holds; a scene not named
+# here is made at its own defaults
+TINY = {"bistro_standin": {"target_mtris": 0.004}}
 
 
 def test_a_run_loads_no_jax(bench_copy):
@@ -26,11 +32,17 @@ def _ref_sources():
                 yield os.path.join(d, f)
 
 
+def _tree(path):
+    with open(path) as f:
+        return ast.parse(f.read(), path)
+
+
 def test_reference_imports_are_relative_or_libraries():
     allowed = {"torch", "numpy", "__future__", "typing", "math"}
     for path in _ref_sources():
-        with open(path) as f:
-            tree = ast.parse(f.read(), path)
+        tree = _tree(path)
+        ok = allowed | ({"importlib", "pkgutil"} if path == LOOKUP
+                        else set())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -39,7 +51,31 @@ def test_reference_imports_are_relative_or_libraries():
             else:
                 continue
             for n in names:
-                assert n.split(".")[0] in allowed, (path, n)
+                assert n.split(".")[0] in ok, (path, n)
+
+
+def test_only_the_scene_lookup_imports_by_name_and_under_scenes():
+    """No reference module but scene.py imports a module by a name it
+    computes, and scene.py only `scenes.<name>`."""
+    for path in _ref_sources():
+        for node in ast.walk(_tree(path)):
+            name = node.id if isinstance(node, ast.Name) else \
+                node.attr if isinstance(node, ast.Attribute) else None
+            assert name != "__import__", path
+            if name == "import_module":
+                assert path == LOOKUP, path
+    calls = [n for n in ast.walk(_tree(LOOKUP)) if isinstance(n, ast.Call)
+             and ast.unparse(n.func) == "importlib.import_module"]
+    assert len(calls) == 1
+    call = calls[0]
+    assert len(call.args) == 1 and not call.keywords
+    arg = call.args[0]
+    # f"{scenes.__name__}.{name}"
+    assert isinstance(arg, ast.JoinedStr) and len(arg.values) == 3
+    head, dot, tail = arg.values
+    assert ast.unparse(head.value) == "scenes.__name__"
+    assert isinstance(dot, ast.Constant) and dot.value == "."
+    assert ast.unparse(tail.value) == "name"
 
 
 def test_reference_reads_no_environment():
@@ -48,6 +84,32 @@ def test_reference_reads_no_environment():
         with open(path) as f:
             text = f.read()
         assert "environ" not in text and "getenv" not in text, path
+
+
+def test_making_every_scene_reaches_nothing_of_the_program():
+    """scene.make of every scene the reference has, run: a scene module
+    that imported the program inside a function would show here."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from benchmark.reference import scene\n"
+        "made = []\n"
+        "for name in scene.names():\n"
+        f"    s = scene.make(name, device=torch.device('cpu'), "
+        f"**{TINY!r}.get(name, {{}}))\n"
+        "    assert isinstance(s, scene.Standin), name\n"
+        "    made.append(name)\n"
+        "print(json.dumps([made, sorted({m.split('.')[0] "
+        "for m in sys.modules})]))\n")
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+    made, mods = json.loads(done.stdout.strip().splitlines()[-1])
+    assert "bistro_standin" in made
+    assert "eidola_tpu_torch" not in mods
+    assert not set(mods) & FORBIDDEN
 
 
 def test_reference_reaches_nothing_of_the_program():
