@@ -11,8 +11,9 @@ reference as a run holds its window's last frame (the lower readings);
 for each control seed, the control, the reference in TF32
 (reference.Reference(control=True)), is put in the program's place on
 the same frame's inputs (the upper readings).  Prints one JSON line a
-reading and a summary line: the largest program reading and the smallest
-control reading of each number.  The benchmark's runs never run the
+reading, with every number of check.NUMBERS (light_mismatch among them),
+and a summary line: the largest program reading and the smallest control
+reading of each number.  The benchmark's runs never run the
 control.
 """
 from __future__ import annotations

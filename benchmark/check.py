@@ -3,13 +3,17 @@
 After the window, the harness renders the window's last frame once more
 from the state it started from (`record`), with the program's ray front
 doors (render/tracer.py's trace_closest and trace_occlusion, where
-render/direct.py, render/indirect.py and render/tracer.py call them) and
-its denoiser and compose calls in render/frame.py wrapped to keep what
-they were given and gave: the primary rays in full, a sample drawn from
-the seed of every other call's rays, the noisy light each denoiser call
-was given, the emission and albedo compose was given.  The window's own
-outputs are what is judged.  The numbers, each the program against the
-reference (reference/):
+render/direct.py, render/indirect.py and render/tracer.py call them), its
+light front doors (render/pathtrace.py's sample_direct_light and
+env_radiance, where render/direct.py and render/tracer.py call them, and
+env_pdf_dir, where render/tracer.py and light_pdf_for_bsdf_dir call it)
+and its denoiser and compose calls in render/frame.py wrapped to keep
+what they were given and gave: the primary rays in full, a sample drawn
+from the seed of every other call's rays, of every light draw's random
+words and sample, and of every radiance and pdf lookup's directions and
+answers, the noisy light each denoiser call was given, the emission and
+albedo compose was given.  The window's own outputs are what is judged.
+The numbers, each the program against the reference (reference/):
 
   ray_max_abs        the primary rays: the program's origins and
                      directions against the reference's camera and
@@ -31,6 +35,25 @@ reference (reference/):
   state_max_rel      the frame state the window left: its accumulated
                      HDR against the reference's (difference over
                      max(1, |reference|)), its count and frame index
+  light_mismatch     the largest of three shares of the sampled light
+                     records that disagree (the scene's light,
+                     reference/lights/): draws, whose direction lies
+                     more than DIR_APART from the one that the reference
+                     draws from the same random words, or whose radiance
+                     over pdf differs by more than L_REL; radiance
+                     lookups that differ by more than L_REL; pdf lookups
+                     that differ by more than L_REL, or are zero on one
+                     side only.  The frame's escaped rays find the sun's
+                     disk about once in 10^5, so each lookup call is
+                     also asked, after the frame's own call, for its
+                     answer at the frame's latest drawn directions: the
+                     light's support
+
+What the reference does not re-derive, and takes from the program's
+frame: K1's and K2's shading and resampling (the RIS candidates'
+weights, the reservoirs, the temporal merge, the path's throughput),
+every ray but the primary ones, and so a shadow ray's far end (its
+light sample's distance), and the accumulation before the frame.
 
 Each has a limit in workloads/<cell>.json, set from the program's
 readings over many seeds and the control's (PERF.md).  A number that is
@@ -39,6 +62,7 @@ not finite fails, and so does a frame whose calls were not all seen.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib
 import inspect
 import math
@@ -47,14 +71,40 @@ from typing import NamedTuple
 import torch
 
 NUMBERS = ("ray_max_abs", "closest_mismatch", "occluded_mismatch",
-           "denoise_max_abs", "image_max_abs", "state_max_rel")
+           "denoise_max_abs", "image_max_abs", "state_max_rel",
+           "light_mismatch")
 T_REL = 1e-4
+# a light draw's direction may lie this far from the reference's: float32
+# puts the sun's draws within 2.5e-4 of it, past 1e-4 only where the
+# cone's cosine is within 2^-24 of 1 (u1 under 0.003: 0.2% of draws)
+DIR_APART = 1e-4
+# a draw's radiance over pdf, a radiance or a pdf may differ from the
+# reference's by this share: the program's sun pdf and disk radiance are
+# 0.21% high (float32 holds 1 - cos of the sun's 0.00465 rad radius in
+# steps of 2^-24: 181 of them for 181.4), each draw's weight and every
+# other lookup within 3e-5; a light 1% off fails
+L_REL = 5e-3
+# a radiance is held to L_REL of max(|reference|, L_FLOOR): near zero a
+# relative difference is float32's rounding in the sky's XYZ-to-RGB mix,
+# not a fault; 1e-3 is a hundredth of the sun and sky's dimmest channel
+# (0.099), so it does not bite there
+L_FLOOR = 1e-3
+# a lane's direction counts as one within this of unit length
+UNIT = 1e-3
 # the program's ray front doors, by the modules that call them
 TRACE_SITES = (("eidola_tpu_torch.render.direct", "trace_closest"),
                ("eidola_tpu_torch.render.direct", "trace_occlusion"),
                ("eidola_tpu_torch.render.indirect", "trace_closest"),
                ("eidola_tpu_torch.render.tracer", "trace_closest"),
                ("eidola_tpu_torch.render.tracer", "trace_occlusion"))
+# the program's light front doors, by the modules that call them
+DRAW_SITES = (("eidola_tpu_torch.render.direct", "sample_direct_light"),
+              ("eidola_tpu_torch.render.tracer", "sample_direct_light"))
+LOOKUP_SITES = (
+    ("eidola_tpu_torch.render.direct", "env_radiance", "radiance"),
+    ("eidola_tpu_torch.render.tracer", "env_radiance", "radiance"),
+    ("eidola_tpu_torch.render.tracer", "env_pdf_dir", "pdf"),
+    ("eidola_tpu_torch.render.pathtrace", "env_pdf_dir", "pdf"))
 FRAME = "eidola_tpu_torch.render.frame"
 
 
@@ -72,6 +122,9 @@ class Record(NamedTuple):
     noisy: list             # [(img, pos, nrm, mat, valid)] a denoiser call
     emission: torch.Tensor
     albedo: torch.Tensor
+    draws: list             # [(rng state, wi, pdf, li)] sampled, a draw
+    radiance: list          # [(d, radiance)] sampled, a lookup
+    pdf: list               # [(d, pdf)] sampled, a lookup
 
 
 def _flat(x, n, like):
@@ -82,23 +135,43 @@ def _flat(x, n, like):
 class Recorder:
     def __init__(self, seed: int, per_call: int):
         self.gen = torch.Generator().manual_seed(int(seed) & 0xFFFFFFFF)
+        # the light's lanes come from a generator of their own, so that
+        # the rays' sample is the one it was
+        self.light_gen = torch.Generator().manual_seed(
+            (int(seed) + 1) & 0xFFFFFFFF)
         self.per_call = per_call
         self.primary = None
         self.closest, self.occluded, self.noisy = [], [], []
         self.emission = self.albedo = None
+        self.draws, self.lookups = [], {"radiance": [], "pdf": []}
+
+    def pick(self, ok, gen):
+        """per_call lanes drawn from those where `ok`, or None."""
+        live = torch.nonzero(ok)[:, 0]
+        if not live.numel():
+            return None
+        pick = torch.randint(0, live.numel(), (self.per_call,),
+                             generator=gen).to(live.device)
+        return live[pick]
 
     def rays(self, o, d, t_min, t_max):
         """The sampled live rays of a call, and their indices."""
         n = o.numel() // 3
         rays = Rays(o.reshape(n, 3), d.reshape(n, 3), _flat(t_min, n, o),
                     _flat(t_max, n, o))
-        live = torch.nonzero(rays.t_max > rays.t_min)[:, 0]
-        if not live.numel():
+        idx = self.pick(rays.t_max > rays.t_min, self.gen)
+        if idx is None:
             return None, None
-        pick = torch.randint(0, live.numel(), (self.per_call,),
-                             generator=self.gen).to(live.device)
-        idx = live[pick]
         return Rays(*[x[idx] for x in rays]), idx
+
+    def directions(self, d):
+        """The sampled lanes of a call whose direction is finite and of
+        unit length, as (d (k, 3), their indices), or None."""
+        d = d.reshape(-1, 3)
+        ok = torch.isfinite(d).all(-1) & (
+            (torch.linalg.norm(d, dim=-1) - 1.0).abs() < UNIT)
+        idx = self.pick(ok, self.light_gen)
+        return None if idx is None else (d[idx], idx)
 
     def trace(self, kind, args, out):
         o, d = args["o"], args["d"]
@@ -114,9 +187,38 @@ class Recorder:
         elif sample is not None:
             self.occluded.append((sample, out[1].reshape(-1)[idx]))
 
+    def draw(self, fn, bound, out):
+        """A light draw: the state it was given, and its sample."""
+        ls = out[1]
+        picked = self.directions(ls.wi)
+        if picked is not None:
+            wi, idx = picked
+            state = bound.arguments["rng_state"]
+            self.draws.append((state.reshape(-1)[idx], wi,
+                               ls.pdf.reshape(-1)[idx],
+                               ls.li.reshape(-1, 3)[idx]))
+
+    def lookup(self, kind, fn, bound, out):
+        """A radiance or pdf lookup of directions `d`: its sampled lanes,
+        and `fn`'s answer at the frame's latest drawn directions."""
+        picked = self.directions(bound.arguments["d"])
+        if picked is None:
+            return
+        d, idx = picked
+        n = bound.arguments["d"].numel() // 3
+        dirs, got = [d], [out.reshape(n, -1)[idx]]
+        if self.draws:
+            wi = self.draws[-1][1]
+            bound.arguments["d"] = wi
+            dirs.append(wi)
+            got.append(fn(*bound.args, **bound.kwargs).reshape(
+                wi.shape[0], -1))
+        self.lookups[kind].append((torch.cat(dirs), torch.cat(got)))
+
     def result(self) -> Record:
         return Record(self.primary, self.closest, self.occluded, self.noisy,
-                      self.emission, self.albedo)
+                      self.emission, self.albedo, self.draws,
+                      self.lookups["radiance"], self.lookups["pdf"])
 
 
 @contextlib.contextmanager
@@ -142,16 +244,22 @@ def record(step, scene, cam, params, tm, prev, seed: int,
     what check.py compares."""
     rec = Recorder(seed, per_call)
 
-    def tracer(kind):
+    def kept(keep):
+        """make(fn): fn, and keep(fn, its bound arguments, its output)
+        after each call."""
         def make(fn):
             sig = inspect.signature(fn)
 
             def wrapper(*a, **k):
                 out = fn(*a, **k)
-                rec.trace(kind, sig.bind(*a, **k).arguments, out)
+                keep(fn, sig.bind(*a, **k), out)
                 return out
             return wrapper
         return make
+
+    def tracer(kind):
+        return kept(lambda fn, bound, out: rec.trace(kind, bound.arguments,
+                                                     out))
 
     def denoiser(fn):
         def wrapper(img, view, *a, **k):
@@ -167,6 +275,9 @@ def record(step, scene, cam, params, tm, prev, seed: int,
         return wrapper
 
     sites = [(m, n, tracer(n)) for m, n in TRACE_SITES]
+    sites += [(m, n, kept(rec.draw)) for m, n in DRAW_SITES]
+    sites += [(m, n, kept(functools.partial(rec.lookup, kind)))
+              for m, n, kind in LOOKUP_SITES]
     sites += [(FRAME, "atrous_denoise", denoiser),
               (FRAME, "compose", composer)]
     with _wrapped(sites), torch.no_grad():
@@ -185,6 +296,9 @@ def program_answers(record: Record, out: dict, state, prev) -> dict:
         "image": out["image"],
         "state": (state.accum, float(state.accum_count),
                   int(state.frame_idx)),
+        "draws": [(wi, pdf, li) for _, wi, pdf, li in record.draws],
+        "radiance": [li for _, li in record.radiance],
+        "pdf": [pdf for _, pdf in record.pdf],
     }
 
 
@@ -205,6 +319,9 @@ def reference_answers(ref, record: Record, out: dict, prev,
                      for k, noisy in enumerate(record.noisy)],
         "image": img,
         "state": (accum, count, index + 1),
+        "draws": [ref.draw(state) for state, *_ in record.draws],
+        "radiance": [ref.light.radiance(d) for d, _ in record.radiance],
+        "pdf": [ref.light.pdf(d) for d, _ in record.pdf],
     }
 
 
@@ -217,6 +334,46 @@ def _share(flags) -> float:
     flags = torch.cat([f.reshape(-1).to(torch.bool) for f in flags]) \
         if flags else torch.zeros(0, dtype=torch.bool)
     return float(flags.double().mean()) if flags.numel() else math.nan
+
+
+def _off(got, want, floor: float):
+    """Whether each record (a row of `want`'s shape, or of its first
+    dimension) differs by more than L_REL of max(|want|, floor)."""
+    got = got.double()
+    want = want.double().to(got.device).reshape(got.shape)
+    off = (got - want).abs() > L_REL * torch.clamp(want.abs(), min=floor)
+    return off.reshape(off.shape[0], -1).any(-1)
+
+
+def _weight(pdf, li):
+    """A draw's radiance over its pdf, 0 where the pdf is."""
+    pdf = pdf.double().reshape(-1, 1)
+    return torch.where(pdf > 0.0, li.double() / torch.where(
+        pdf > 0.0, pdf, torch.ones_like(pdf)), 0.0)
+
+
+def light_mismatch(got: dict, want: dict) -> float:
+    """The largest share of the light's sampled draws, radiance lookups
+    and pdf lookups that disagree; inf where a kind was not seen."""
+    draws = []
+    for (wi_g, pdf_g, li_g), (wi_w, pdf_w, li_w) in zip(got["draws"],
+                                                        want["draws"]):
+        wi_w = wi_w.double().to(wi_g.device)
+        apart = torch.linalg.norm(wi_g.double() - wi_w, dim=-1) > DIR_APART
+        draws.append(apart | _off(_weight(pdf_g, li_g), _weight(pdf_w, li_w),
+                                  L_FLOOR))
+    radiance = [_off(g, w, L_FLOOR)
+                for g, w in zip(got["radiance"], want["radiance"])]
+    pdf = []
+    for g, w in zip(got["pdf"], want["pdf"]):
+        g = g.reshape(-1)
+        w = w.reshape(-1).to(g.device)
+        pdf.append(_off(g, w, 0.0) | ((g == 0) != (w == 0)))
+    kinds = (draws, radiance, pdf)
+    if not all(kinds) or any(len(got[k]) != len(want[k])
+                             for k in ("draws", "radiance", "pdf")):
+        return math.inf
+    return max(_share(k) for k in kinds)
 
 
 def readings(got: dict, want: dict) -> dict:
@@ -248,6 +405,7 @@ def readings(got: dict, want: dict) -> dict:
         "denoise_max_abs": denoise if seen else math.inf,
         "image_max_abs": _max_abs(got["image"], want["image"]),
         "state_max_rel": state,
+        "light_mismatch": light_mismatch(got, want),
     }
 
 

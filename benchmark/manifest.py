@@ -8,9 +8,10 @@ that decide `correct`).  Its metrics: the end-to-end and per-layer
 entries of BENCHMARK.json that take this cell (all cells when an entry
 has no `workloads` key); each per-layer metric is read by
 `metrics/<name>.py`.  The scene that the plain reference traces is
-`reference/scenes/<scene>.py`, found by the configuration's `scene`.  A
-new cell, mix, configuration, metric or scene of the reference is a new
-file: nothing here names one.
+`reference/scenes/<scene>.py`, found by the configuration's `scene`, and
+the light it samples `reference/lights/<kind>.py`, found by the kind the
+scene names.  A new cell, mix, configuration, metric, or scene or light
+of the reference is a new file: nothing here names one.
 """
 from __future__ import annotations
 

@@ -8,6 +8,9 @@ nothing of it: each module says what it was written from.
                 configuration's `scene` (a new scene of the reference is
                 a new file); scenes/bistro_standin.py, the procedural
                 stand-in from its fixed seeds
+  light.py      the scene's light, lights/<kind>.py, found by the kind
+                the scene names (a new light is a new file):
+                lights/sunsky.py, the sun's cone and the sky's radiance
   camera.py     the camera path and the primary rays (rng.py: the
                 frame's seeds and draws)
   trace.py      every ray against every triangle, with the leaf cards'
@@ -17,16 +20,22 @@ nothing of it: each module says what it was written from.
 
 `Reference` answers, for a frame of the cell, what the program's frame
 must give: the primary rays; the nearest hit of any ray, however far,
-or its occlusion within its span; the denoised image of a noisy one; the
-accumulated HDR and the LDR image of the denoised light.  It does not re-render the frame's sampling: the
-check hands it the rays, the noisy light and the accumulation history
-that the program's frame had (check.py says which).
+or its occlusion within its span; the light sample that a lane's random
+words draw (its direction, pdf and radiance), and the light's radiance
+and pdf along any direction; the denoised image of a noisy one;
+the accumulated HDR and the LDR image of the denoised light.  It does
+not re-render the frame's shading: the check hands it the rays, the
+random words of each light draw, the noisy light and the accumulation
+history that the program's frame had (check.py says which), so K1's and
+K2's shading and resampling, and a shadow ray's far end, are still the
+program's.
 """
 from __future__ import annotations
 
 import torch
 
 from . import camera, image, rng
+from .light import make as make_light
 from .precision import Precision
 from .scene import make as make_scene
 from .trace import INF, Tracer
@@ -52,6 +61,15 @@ class Reference:
         self.scene = scene if scene is not None else make_scene(
             config["scene"], device=self.device,
             **config.get("scene_args", {}))
+        if self.scene.emitters:
+            raise ValueError(
+                f"the scene has {self.scene.emitters} triangle or punctual "
+                f"emitters; the reference samples only its light, "
+                f"{self.scene.light[0]!r}, until a file of lights/ brings "
+                f"them")
+        kind, light_args = self.scene.light
+        self.light = make_light(kind, device=self.device, num=self.num,
+                                **light_args)
         self.path = camera.CameraPath(self.scene.view,
                                       float(traffic["orbit_rad"]),
                                       self.width, self.height, self.device)
@@ -79,6 +97,17 @@ class Reference:
 
     def occluded(self, o, d, t_min, t_max):
         return self.tracer.occluded(o, d, t_min, t_max)
+
+    def draw(self, state):
+        """(wi, pdf, li) of the light sample that the words after `state`
+        draw: the selection word, then four for the light, which is
+        chosen with probability 1 (the scene has no other emitter)."""
+        state, _ = rng.rand(state)
+        u = []
+        for _ in range(4):
+            state, x = rng.rand(state)
+            u.append(x)
+        return self.light.sample(*u)
 
     def denoise(self, img, pos, nrm, mat, valid, indirect: bool):
         return image.denoise(img, pos, nrm, mat, valid,

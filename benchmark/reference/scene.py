@@ -6,8 +6,11 @@ found by that name: a new scene of the reference is a new file, and
 nothing here names one.  Its `make(*, device, **scene_args)` gives a
 `Standin`: the world-space triangles in float64, split into the opaque
 ones and the alpha-tested ones, the alpha-tested ones' texture
-coordinates, their texture's alpha and cutoff, and the view (eye,
-center, vertical field of view in degrees) of the scene's own camera.
+coordinates, their texture's alpha and cutoff, the view (eye, center,
+vertical field of view in degrees) of the scene's own camera, its light
+(a kind of light.py's, lights/<kind>.py, and its arguments) and the
+number of its triangle and punctual emitters, which the reference does
+not sample yet.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ class Standin(NamedTuple):
     leaf_alpha: torch.Tensor   # (h, w) f64 texture alpha, repeat-wrapped
     cutoff: float
     view: tuple                # (eye, center, fovy_deg)
+    light: tuple               # (kind, {light_args}): lights/<kind>.py
+    emitters: int              # triangle and punctual emitters
 
 
 def names() -> list:

@@ -12,7 +12,10 @@ left out: no number the check compares reads them.
 (each instance's 4x4 applied here, never the program's BVHs or
 transforms), split into the opaque ones and the alpha-tested leaves, the
 leaves' texture coordinates, the leaf texture's alpha and cutoff, and
-the view (eye, center, vertical field of view in degrees).
+the view (eye, center, vertical field of view in degrees), and its light:
+the renderer's default sun and sky (lights/sunsky.py), whose numbers are
+frozen here from the JAX package's scene/data.py:default_sunsky.  Its
+materials emit nothing, so the sun and sky is the only light.
 """
 from __future__ import annotations
 
@@ -23,6 +26,12 @@ from ..scene import Standin
 
 # the leaf material: alpha MASK at this cutoff, base colour alpha 1
 LEAF_CUTOFF = 0.5
+# the renderer's default sun and sky (scene/data.py:default_sunsky)
+SUNSKY = {"sun_direction": [0.45, 0.78, 0.45], "sun_intensity": 1.0,
+          "sun_angular_radius": 0.00465, "turbidity": 3.0,
+          "ground_color": [0.4, 0.35, 0.3], "sky_tint": [1.0, 1.0, 1.0],
+          "saturation": 1.0, "redblueshift": 0.0,
+          "night_color": [0.0, 0.0, 0.01], "sun_glow_intensity": 1.0}
 
 
 def quad_tris(p0, p1, p2, p3):
@@ -141,7 +150,8 @@ def standin(target_mtris: float = 2.83, *, device) -> Standin:
     return Standin(opaque=torch.cat(opaque), alpha=torch.cat(alpha),
                    alpha_uv=torch.cat(alpha_uv),
                    leaf_alpha=torch.as_tensor(leaf_alpha(), **f64),
-                   cutoff=LEAF_CUTOFF, view=view)
+                   cutoff=LEAF_CUTOFF, view=view, light=("sunsky", SUNSKY),
+                   emitters=0)
 
 
 def make(*, device, target_mtris: float = 2.83) -> Standin:

@@ -9,10 +9,12 @@ default settings, a closed loop) as the cell `standin_orbit_tiny`, with a
 per-layer metric of its own (`compose_ms`, read by a new file under
 metrics/); and a scene of the reference's own,
 `reference/scenes/alpha.py` (the program's `alpha` scene: an alpha-MASK
-screen before a box), with the configuration `alpha_tiny` and the cell
-`alpha_orbit_tiny`.  The stage metrics take the new cells too.  `run_copy` runs the harness's
-measure() of one of the copy's cells in a subprocess whose `benchmark`
-package is the copy's.
+screen before a box) lit by a light of its own,
+`reference/lights/alpha_sky.py` (the default sun and sky), with the
+configuration `alpha_tiny` and the cell `alpha_orbit_tiny`.  The stage
+metrics take the new cells too.  `run_copy` runs the harness's measure()
+of one of the copy's cells in a subprocess whose `benchmark` package is
+the copy's.
 """
 import json
 import os
@@ -27,10 +29,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 # the tiny cell's limits, set between the program's readings over 12
 # seeds on the CPU and the control's over 3 (benchmark/calibrate.py
-# --device cpu; PERF.md)
+# --device cpu; PERF.md); light_mismatch: at most 0.00625 under either
+# alpha march against 1.0
 TINY_LIMITS = {"ray_max_abs": 1e-5, "closest_mismatch": 0.02,
                "occluded_mismatch": 0.02, "denoise_max_abs": 1e-5,
-               "image_max_abs": 1e-5, "state_max_rel": 1e-5}
+               "image_max_abs": 1e-5, "state_max_rel": 1e-5,
+               "light_mismatch": 0.05}
 TINY_SCENE = {"target_mtris": 0.004}     # 2 x 2 lots, 15,874 triangles
 NEW_CELLS = ("standin_orbit_tiny", "alpha_orbit_tiny")
 COMPOSE_MS = '''"""compose and post a frame: StageTimer's compose_post."""
@@ -73,7 +77,18 @@ def make(*, device):
         alpha=torch.as_tensor(screen, **f64),
         alpha_uv=torch.as_tensor((screen[..., :2] + 1.5) / 3.0, **f64),
         leaf_alpha=torch.as_tensor((yy // 4 + xx // 4) % 2, **f64),
-        cutoff=0.5, view=([0.0, 1.4, 4.6], [0.0, 0.9, 0.0], 45.0))
+        cutoff=0.5, view=([0.0, 1.4, 4.6], [0.0, 0.9, 0.0], 45.0),
+        light=("alpha_sky", {}), emitters=0)
+'''
+ALPHA_LIGHT = '''"""The `alpha` scene's light: the renderer's default sun and
+sky, written from the JAX package's scene/data.py:default_sunsky
+(lights/sunsky.py at the numbers scenes/bistro_standin.py freezes)."""
+from ..scenes.bistro_standin import SUNSKY
+from . import sunsky
+
+
+def make(*, device, num):
+    return sunsky.make(device=device, num=num, **SUNSKY)
 '''
 
 
@@ -113,6 +128,7 @@ def bench_copy(tmp_path):
                "check": {"rays_per_call": 64}, "limits": TINY_LIMITS})
     (b / "metrics" / "compose_ms.py").write_text(COMPOSE_MS)
     (b / "reference" / "scenes" / "alpha.py").write_text(ALPHA_SCENE)
+    (b / "reference" / "lights" / "alpha_sky.py").write_text(ALPHA_LIGHT)
     with open(root / "BENCHMARK.json") as f:
         m = json.load(f)
     for cell, config in zip(NEW_CELLS, ("standin_tiny", "alpha_tiny")):

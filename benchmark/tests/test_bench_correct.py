@@ -1,9 +1,10 @@
 """`correct` fails where it should: the control (the reference in TF32
 in the program's place) fails the cell's limits, and so does a run whose
 timed path is broken underneath, for each fault a one-card frame can
-have.  (A frame has no exchange between cards to leave out.)  At the
-size of the tiny cell of conftest.bench_copy, on the CPU and, marked
-`cuda`, on the card; the CPU runs the program's alpha march both ways."""
+have, the light's among them.  (A frame has no exchange between cards to
+leave out.)  At the size of the tiny cell of conftest.bench_copy, on the
+CPU and, marked `cuda`, on the card; the CPU runs the program's alpha
+march both ways."""
 import pytest
 import torch
 
@@ -70,6 +71,15 @@ BREAK_TRACER = """
 import eidola_tpu_torch.render.tracer as T
 {body}
 """
+BREAK_SUN = """
+import math
+import torch
+import eidola_tpu_torch.render.pathtrace as P
+_sample_env = P.sample_env
+def broken(cfg, scene, params, u1, u2, u3, u4):
+{body}
+P.sample_env = broken
+"""
 FAULTS = {
     # the step hands back the state it was given
     "state_unchanged": BREAK_FRAME.format(body="    new = state"),
@@ -115,12 +125,56 @@ def short(img, view, levels, *a, **k):
     return _denoise(img, view, levels - 1, *a, **k)
 F.atrous_denoise = short
 """,
+    # the light's faults, none of which touches a ray or an image stage:
+    # the sun's pdf twice what its draws have
+    "sun_pdf_doubled": BREAK_SUN.format(body=(
+        "    wi, pdf, li = _sample_env(cfg, scene, params, u1, u2, u3, u4)\n"
+        "    return wi, pdf * 2.0, li")),
+    # the sky 1% dim along every escaped ray and primary miss
+    "sky_dimmed": """
+import eidola_tpu_torch.render.direct as D
+import eidola_tpu_torch.render.pathtrace as P
+import eidola_tpu_torch.render.tracer as T
+_env = P.env_radiance
+def dimmed(cfg, scene, params, d):
+    return _env(cfg, scene, params, d) * 0.99
+P.env_radiance = D.env_radiance = T.env_radiance = dimmed
+""",
+    # the drawn direction turned 0.01 rad about the vertical
+    "sun_turned": BREAK_SUN.format(body=(
+        "    wi, pdf, li = _sample_env(cfg, scene, params, u1, u2, u3, u4)\n"
+        "    c, s = math.cos(0.01), math.sin(0.01)\n"
+        "    x, y, z = wi.unbind(-1)\n"
+        "    return torch.stack([c * x + s * z, y, c * z - s * x], -1), "
+        "pdf, li")),
+    # the sun's two words swapped
+    "draws_reordered": BREAK_SUN.format(body=(
+        "    return _sample_env(cfg, scene, params, u2, u1, u3, u4)")),
+    # the MIS light pdf of an escaped BSDF ray nought everywhere
+    "mis_pdf_zero": """
+import torch
+import eidola_tpu_torch.render.pathtrace as P
+import eidola_tpu_torch.render.tracer as T
+def zero(cfg, scene, d):
+    return torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
+P.env_pdf_dir = T.env_pdf_dir = zero
+""",
 }
 
 
+LIGHT_FAULTS = ("sun_pdf_doubled", "sky_dimmed", "sun_turned",
+                "draws_reordered", "mis_pdf_zero")
+
+
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-def test_a_broken_timed_path_is_not_correct(bench_copy, fault):
+@pytest.mark.parametrize("march", ["lockstep", "queue"])
+def test_a_broken_timed_path_is_not_correct(bench_copy, fault, march,
+                                            monkeypatch):
+    monkeypatch.setenv("EIDOLA_ALPHA_MARCH", march)
     r = run_copy(bench_copy, "standin_orbit_tiny",
                  prelude=FAULTS[fault])["result"]
     assert r["correct"] is False, r["check"]
     assert r["failed"] == 1
+    if fault in LIGHT_FAULTS:      # the light's own number catches it
+        row = r["check"]["light_mismatch"]
+        assert row["value"] > row["limit"], r["check"]

@@ -1,14 +1,22 @@
 """The reference's scenes are found by file: `reference/scenes/<name>.py`
-for a configuration's `scene`.  The stand-in moved there is the
-generator it was, bit for bit."""
+for a configuration's `scene`, and their lights so too:
+`reference/lights/<kind>.py` for the kind a scene names.  The stand-in
+moved there is the generator it was, bit for bit."""
 import hashlib
 import importlib
+import json
+import subprocess
+import sys
 
 import pytest
 import torch
 
 from benchmark import manifest
-from benchmark.reference import Reference, scene
+from benchmark.reference import Reference, light, scene
+from benchmark.reference.precision import Precision
+
+# each scene of the reference at a size a test holds
+TINY = {"bistro_standin": {"target_mtris": 0.004}}
 
 # sha256 of the 2 x 2 lot stand-in's float64 triangles, uvs, leaf alpha,
 # cutoff and view, as the generator gave them before it moved into
@@ -62,3 +70,64 @@ def test_every_configuration_names_a_scene_of_the_reference():
     m = manifest.load_manifest()
     for w in m["workloads"]:
         assert manifest.load_cell(w["name"]).config["scene"] in scene.names()
+
+
+@pytest.mark.parametrize("name", scene.names())
+def test_every_scene_names_a_light_of_the_reference(name):
+    s = scene.make(name, device=torch.device("cpu"), **TINY.get(name, {}))
+    kind, args = s.light
+    assert kind in light.names()
+    assert s.emitters == 0
+    lit = light.make(kind, device=torch.device("cpu"), num=Precision(),
+                     **args)
+    d = torch.tensor([[0.0, 1.0, 0.0], [0.6, 0.0, 0.8]], dtype=torch.float64)
+    assert lit.radiance(d).shape == (2, 3) and lit.pdf(d).shape == (2,)
+
+
+@pytest.mark.parametrize("kind", light.names())
+def test_light_module_says_its_source_and_makes(kind):
+    mod = importlib.import_module(f"benchmark.reference.lights.{kind}")
+    doc = " ".join((mod.__doc__ or "").lower().split())
+    assert "written from" in doc
+    assert callable(mod.make)
+
+
+def test_unknown_light_names_the_lights():
+    with pytest.raises(KeyError, match="no light 'no_such_light'.*sunsky"):
+        light.make("no_such_light", device=torch.device("cpu"),
+                   num=Precision())
+
+
+def test_a_scene_with_emitters_is_refused():
+    cell = manifest.load_cell("standin_static_1080p")
+    config = dict(cell.config, scene_args=TINY["bistro_standin"], width=32,
+                  height=32)
+    s = scene.make("bistro_standin", device=torch.device("cpu"),
+                   **TINY["bistro_standin"])
+    with pytest.raises(ValueError, match="3 triangle or punctual emitters"):
+        Reference(config, cell.traffic, 1, torch.device("cpu"),
+                  scene=s._replace(emitters=3))
+
+
+def test_a_lights_file_dropped_into_a_copy_is_found(bench_copy):
+    """conftest's copy adds reference/lights/alpha_sky.py and a scene that
+    names it, and edits no file that was there: the lookup finds it and
+    the copy's Reference of `alpha_tiny` is lit by it."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(bench_copy)!r})\n"
+        "import torch\n"
+        "from benchmark import manifest\n"
+        "from benchmark.reference import Reference, light\n"
+        "cell = manifest.load_cell('alpha_orbit_tiny')\n"
+        "ref = Reference(cell.config, cell.traffic, 1, torch.device('cpu'))\n"
+        "up = torch.tensor([[0.0, 1.0, 0.0]])\n"
+        "print(json.dumps([light.names(), ref.scene.light[0], "
+        "light.__file__, float(ref.light.radiance(up)[0, 2])]))\n")
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(bench_copy))
+    assert done.returncode == 0, done.stderr[-2000:]
+    names, kind, path, blue = json.loads(done.stdout.strip().splitlines()[-1])
+    assert names == ["alpha_sky", "sunsky"] and kind == "alpha_sky"
+    assert path.startswith(str(bench_copy))
+    assert blue > 0.0
