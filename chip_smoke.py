@@ -14,8 +14,8 @@ drains.  In order:
 1. prints the card's name and power limit (nvidia-smi) and the torch and
    CUDA versions;
 2. builds every native source of the port at once, one compiler process
-   each: csrc/bvh_fused.cu, csrc/bvh_mxu.cu and csrc/bvh_walk.cu with
-   nvcc, the C++ host library (native/src/eidola_native.cpp) with g++,
+   each: every csrc/*.cu (utils/cuda_build.CUDA_SOURCES) with nvcc,
+   the C++ host library (native/src/eidola_native.cpp) with g++,
    and prints each kernel's registers, spills and shared memory as
    ptxas reports them;
 3. DI phase: 2 frames of bistro_flat at 1920x1080 through the headless
@@ -74,6 +74,14 @@ drains.  In order:
    against the plain lap bitwise, both timed beside the kernels' bytes
    bound at 3.35 TB/s, and the device kernels a whole lap launches
    through the kernels and through the plain lap (profiler);
+   then the denoiser's levels (ops/atrous.py): one standin frame with
+   its two atrous_denoise calls kept and 4 + 5 level launches counted in
+   atrous.LAUNCHES; on the direct call (1920x1080) and the indirect one
+   (a [::2, ::2] view at 960x540), at level 0 and the call's last level,
+   the kernel bitwise against the torch level, timed as the wrapper and
+   as its bare launch beside the torch level and the level's bytes and
+   operations bounds; each whole call bitwise against the torch levels,
+   with its device kernels both ways (profiler);
 7. options phase: the same frame under each of the JAX package's build
    and trace options, the switch in the environment: (s) EIDOLA_SBVH=1,
    (f) EIDOLA_ALPHA_FLAT=0, (c) EIDOLA_ALPHA_CULL=1, (d)
@@ -671,6 +679,7 @@ def bench_phase(loaded, load_s: float) -> None:
     print("bench: launches in the run (golden, warm-up, timed, stage "
           f"and ray frames) {json.dumps(launches)}", flush=True)
     lap_check(scene, cam)
+    atrous_check(scene, cam)
 
 
 def _lap_bytes(n: int, n_inst: int, textured: bool) -> int:
@@ -814,6 +823,123 @@ def lap_check(scene, cam) -> None:
           f"{kern_lap_ms:.4f} ms through the kernels, {plain_lap_ms:.4f} ms "
           f"plain; device kernels a lap {kern_kernels} through the "
           f"kernels, {plain_kernels} plain (profiler)", flush=True)
+
+
+def _atrous_bounds(h: int, w: int) -> tuple:
+    """(bytes, operations) of one a-trous level over h x w pixels
+    (csrc/atrous.cu): each pixel's planes read once (image 12, position
+    12, normal 12, hash 8, valid 1) and its output written once (12); a
+    tap's luminance (5), luminance stop (4 and an exp), normal and
+    position stops (3 sub, 3 mul, 2 add, neg, mul and an exp each),
+    weight (4), accumulation (7), an exp counted as one operation: 43 a
+    tap, 25 taps, and the centre's luminance (5) and division (3)."""
+    return h * w * (45 + 12), h * w * (43 * 25 + 8)
+
+
+def atrous_check(scene, cam) -> None:
+    """The denoiser's levels on the card (ops/atrous.py): one standin frame
+    at 1920x1080 with its two atrous_denoise calls kept and the levels
+    counted in atrous.LAUNCHES (4 + 5); on the direct call (1920x1080)
+    and the indirect one (960x540, a [::2, ::2] view of the full-res
+    planes), at level 0 and at the call's last level, the kernel against
+    the torch level (render/denoise.py `atrous_level` on the same CUDA
+    tensors) bitwise, timed (CUDA events) as the whole wrapper call and as
+    its bare launch beside the plain level and the level's bounds (bytes
+    at 3.35 TB/s, operations at 67 TFLOP/s); each whole call bitwise
+    against the torch levels, with the device kernels it launches both
+    ways (profiler)."""
+    import torch
+
+    from eidola_tpu_torch import bench
+    from eidola_tpu_torch.ops import atrous
+    from eidola_tpu_torch.render import denoise as D
+    from eidola_tpu_torch.render import frame as RF
+    from eidola_tpu_torch.render.config import default_params, default_tonemap
+    from eidola_tpu_torch.render.frame import init_frame_state, make_step
+
+    dev = torch.device("cuda")
+    cfg = bench.frame_cfg(scene, 1920, 1080)
+    calls = []
+    denoise = RF.atrous_denoise
+
+    def kept(img, view, levels, *sig):
+        calls.append((img.clone(), view, levels, sig))
+        return denoise(img, view, levels, *sig)
+
+    params, tm = default_params(device=dev), default_tonemap(device=dev)
+    before = atrous.LAUNCHES
+    RF.atrous_denoise = kept
+    try:
+        make_step(cfg)(scene, cam, params, tm, init_frame_state(cfg, cam))
+        torch.cuda.synchronize()
+    finally:
+        RF.atrous_denoise = denoise
+    counted = atrous.LAUNCHES - before
+    levels = [c[2] for c in calls]
+    if levels != [cfg.denoise_direct_levels, cfg.denoise_indirect_levels] \
+            or counted != sum(levels):
+        fail(f"atrous: {counted} level launches for denoiser calls of "
+             f"{levels} levels")
+    print(f"atrous (standin 1920x1080 frame 0): {counted} level launches a "
+          f"frame in atrous.LAUNCHES ({' + '.join(map(str, levels))})",
+          flush=True)
+    wholes = []
+    for name, (img, view, n, sig) in zip(("direct", "indirect"), calls):
+        h, w = img.shape[:2]
+        planes = atrous.View(view.pos, view.nrm, view.mat_hash, view.valid)
+        strided = view.pos.stride(1) != 3
+        for level in (0, n - 1):
+            got = atrous.run_level(img, planes, level, *sig)
+            want = D.atrous_level(img, view, level, *sig)
+            if not torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)):
+                fail(f"atrous: the {name} call's level {level} differs from "
+                     f"the torch level at {int((got != want).sum())} values "
+                     "(the tolerance is bitwise)")
+            out = torch.empty_like(got)
+            launch, _ = atrous.launcher(img, planes, level, *sig, out=out)
+            wrap_ms = time_ms(lambda: atrous.run_level(
+                img, planes, level, *sig, out=out), 20)
+            kern_ms = time_ms(launch, 20)
+            plain_ms = time_ms(lambda: D.atrous_level(
+                img, view, level, *sig), 3)
+            nbytes, ops = _atrous_bounds(h, w)
+            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+            print(f"atrous: {name} level {level} at {w}x{h}"
+                  f"{' (a [::2, ::2] view)' if strided else ''}: bitwise "
+                  f"equal to the torch level; wrapper {wrap_ms:.4f} ms "
+                  f"(kernel {kern_ms:.4f}) vs plain {plain_ms:.4f} ms; bound "
+                  f"{max(t_bytes, t_ops):.4f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+                  f"{nbytes} bytes {t_bytes:.4f} ms, {ops} operations "
+                  f"{t_ops:.4f} ms)", flush=True)
+
+        def plain(img=img, view=view, n=n, sig=sig):
+            for level in range(n):
+                img = D.atrous_level(img, view, level, *sig)
+            return img
+
+        got = D.atrous_denoise(img, view, n, *sig)
+        if not torch.equal(got.view(torch.int32), plain().view(torch.int32)):
+            fail(f"atrous: the {name} call's {n} levels differ from the "
+                 "torch levels (the tolerance is bitwise)")
+        kern_calls = _profiled_kernels(lambda: D.atrous_denoise(img, view, n,
+                                                                *sig))
+        if kern_calls != n:
+            fail(f"atrous: the {name} call launched {kern_calls} device "
+                 f"kernels for {n} levels")
+        call_ms = time_ms(lambda: D.atrous_denoise(img, view, n, *sig), 10)
+        plain_call_ms = time_ms(plain, 2)
+        wholes.append((name, n, w, h, call_ms, plain_call_ms, plain))
+    # the plain calls' profiles last: a profile of thousands of kernels
+    # has been seen to leave the next one a kernel short (a whole call:
+    # 4 of 5 through the kernel, 4,374 of 4,375 plain)
+    for name, n, w, h, call_ms, plain_call_ms, plain in wholes:
+        print(f"atrous: the {name} call ({n} levels at {w}x{h}) bitwise "
+              f"equal to the torch levels; {call_ms:.4f} ms vs plain "
+              f"{plain_call_ms:.4f} ms; device kernels {n} through the "
+              f"kernel, {_profiled_kernels(plain)} plain (profiler)",
+              flush=True)
 
 
 def entry_phase() -> None:

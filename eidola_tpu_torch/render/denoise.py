@@ -8,10 +8,17 @@ weighted by
   * exp(-||n_p - n_q||^2 / sigma_norm)
   * exp(-||x_p - x_q||^2 / (sigma_depth * 2^level))
   * a hard material-hash gate.
-Taps are static shifted slices of an edge-padded tensor, as in the JAX
-package.  `bilateral_denoise` is the single-pass alternative (ref
-denoise_direct.comp:73-137, compile-time DENOISER_DIRECT_BILATERAL); no
-RenderConfig selects it.
+In the torch level taps are static shifted slices of an edge-padded
+tensor, as in the JAX package.  `bilateral_denoise` is the single-pass
+alternative (ref denoise_direct.comp:73-137, compile-time
+DENOISER_DIRECT_BILATERAL); no RenderConfig selects it.
+
+On the card a level is one launch of a hand-written kernel
+(ops/atrous.py, csrc/atrous.cu) with the same arithmetic, bit for bit:
+the taps clamp their rows and columns in the kernel, so nothing is
+padded, and `atrous_denoise` launches only the level kernels (4 + 5 a
+default frame, where the torch level issued ~875 launches each).  CPU
+tensors take the torch level (`atrous_level`).
 
 Under a shard context (ops/halo.py) each level reads the rows that its
 taps reach beyond the rank's band (2 * 2^level) from the ranks above and
@@ -26,6 +33,7 @@ import math
 
 import torch
 
+from ..ops import atrous
 from ..ops.halo import get_shard
 from ..ops.math import luminance
 from ..parallel.exchange import exchange_rows
@@ -117,7 +125,8 @@ def _edge_stopped(img, view: GBufferView, taps, sigma_lum, sigma_norm,
 def atrous_level(img, view: GBufferView, level: int, sigma_lum, sigma_norm,
                  sigma_depth, view_ext=None):
     """One a-trous iteration at stride 2^level (ref
-    denoise_direct.comp:19-71)."""
+    denoise_direct.comp:19-71): the torch level, which `atrous_denoise`
+    runs for CPU tensors and ops/atrous.py's kernel equals on the card."""
     stride = 1 << level
     taps = [((iy - 2) * stride, (ix - 2) * stride, ky * kx)
             for iy, ky in enumerate(_K5) for ix, kx in enumerate(_K5)]
@@ -128,13 +137,20 @@ def atrous_level(img, view: GBufferView, level: int, sigma_lum, sigma_norm,
 def atrous_denoise(img, view: GBufferView, levels: int, sigma_lum, sigma_norm,
                    sigma_depth):
     """Levels 0..levels-1 (ref renderer.cpp:178-202: 4 direct / 5
-    indirect iterations)."""
+    indirect iterations): on the card one kernel launch a level."""
     sh = get_shard()
     view_ext = None
     if sh is not None and levels > 0:
         e = 2 << (levels - 1)               # the last level's pad
         view_ext = (exchange_rows(sh, _view_planes(view), e,
                                   "denoise.view"), e)
+    if img.device.type != "cpu":
+        planes, e = view_ext or (_view_planes(view), 0)
+        exchange = None if sh is None else (
+            lambda a, pad: exchange_rows(sh, a, pad, "denoise.img"))
+        return atrous.run_levels(img, atrous.View(*planes), levels,
+                                 sigma_lum, sigma_norm, sigma_depth,
+                                 e_view=e, exchange=exchange)
     for level in range(levels):
         img = atrous_level(img, view, level, sigma_lum, sigma_norm,
                            sigma_depth, view_ext=view_ext)

@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
 # every csrc/<name>.cu; chip_smoke.py builds them all at once
-CUDA_SOURCES = ("alpha_lap", "bvh_fused", "bvh_mxu", "bvh_walk")
+CUDA_SOURCES = ("alpha_lap", "atrous", "bvh_fused", "bvh_mxu", "bvh_walk")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # the viewer renders from two threads; one builds and loads at a time

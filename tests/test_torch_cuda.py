@@ -17,7 +17,11 @@ compacted torch walk against the uncompacted one; the alpha march's lap
 kernels (`lap_prep`, `lap_merge`) against the plain lap on every lap of
 a standin frame at 1920x1080 and on small flat, instanced and
 untextured scenes under MASK and BLEND, whole frames alike, and their
-launch count against the march's select spans.
+launch count against the march's select spans; the a-trous level kernel
+(ops/atrous.py) against the torch level at levels 0-4, on full and
+strided views, images narrower than a level's reach, invalid pixels,
+mismatched material hashes and row-extended planes, the whole denoiser
+and a frame alike, with its launches, no host sync and no other kernel.
 """
 import os
 
@@ -1018,3 +1022,157 @@ def test_alpha_lap_launches_are_the_march_selects(standin_1080):
     (laps, selects), (flat_laps, flat_selects) = counts
     assert laps == selects > 0, counts
     assert flat_laps == flat_selects == 0, counts
+
+
+def _atrous_case(h, w, seed, dev, strided=False):
+    """(noisy image, view, sigmas) on `dev`: an (h, w, 3) image in [0, 1],
+    a view with 10% invalid pixels and three material hashes, positions
+    in a 4-unit cube and unit normals; `strided`: the view planes are
+    [::2, ::2] of a (2h, 2w) view, as the indirect stage's."""
+    from eidola_tpu_torch.render.gbuffer import GBufferView
+
+    r = np.random.default_rng(seed)
+    hv, wv = (2 * h, 2 * w) if strided else (h, w)
+    nrm = r.normal(size=(hv, wv, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    planes = [t(r.random((hv, wv)) < 0.9),
+              t((4 * r.random((hv, wv, 3))).astype(np.float32)),
+              t(nrm.astype(np.float32)), t(r.integers(0, 3, (hv, wv)))]
+    if strided:
+        planes = [a[::2, ::2] for a in planes]
+    valid, pos, nrm, mat_hash = planes
+    view = GBufferView(valid, None, pos, nrm, None, mat_hash, None, None,
+                       None, None)
+    img = t(r.random((h, w, 3)).astype(np.float32))
+    sig = [torch.tensor(x, dtype=torch.float32, device=dev)
+           for x in (4.0, 128.0, 2.0)]
+    return img, view, sig
+
+
+ATROUS_CASES = [
+    # (h, w, level, strided view): every level of a default frame, the
+    # indirect stage's strided view, images narrower than the level's
+    # reach (16 px at level 4) and a single pixel
+    *[(67, 93, level, False) for level in range(5)],
+    (67, 93, 0, True), (67, 93, 4, True),
+    (7, 5, 4, False), (7, 5, 4, True), (1, 1, 2, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,level,strided", ATROUS_CASES)
+def test_atrous_level_kernel_matches_plain(cuda, h, w, level, strided):
+    """One launch of ops/atrous.py's kernel equals the torch level
+    (render/denoise.atrous_level) on the same CUDA tensors bit for bit."""
+    from eidola_tpu_torch.ops import atrous
+    from eidola_tpu_torch.render import denoise as D
+
+    img, view, sig = _atrous_case(h, w, 100 * level + h, cuda, strided)
+    before = atrous.LAUNCHES
+    got = atrous.run_level(img, atrous.View(view.pos, view.nrm,
+                                            view.mat_hash, view.valid),
+                           level, *sig)
+    want = D.atrous_level(img, view, level, *sig)
+    torch.cuda.synchronize()
+    assert atrous.LAUNCHES == before + 1
+    assert got.shape == want.shape == (h, w, 3)
+    assert torch.equal(_bits(got), _bits(want))
+    if h * w > 1:
+        assert bool((got != img).any()), "degenerate case: nothing moved"
+        assert bool((~view.valid).any()), "degenerate case: all valid"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r0", [0, 24, 36])
+def test_atrous_level_kernel_on_row_extended_planes(cuda, r0):
+    """A band of 24 rows from row r0 of a 60x37 image, as a shard holds it:
+    its image with pad = 8 rows above and below (level 2's reach) and its
+    view planes with e = 16, the rows an exchange brings (clamped at the
+    image's border).  The kernel's level 2 on them equals those rows of
+    the torch level on the whole image, bit for bit."""
+    from eidola_tpu_torch.ops import atrous
+    from eidola_tpu_torch.render import denoise as D
+
+    level, n, e = 2, 24, 16
+    pad = 2 << level
+    img, view, sig = _atrous_case(60, 37, 5 + r0, cuda)
+    want = D.atrous_level(img, view, level, *sig)[r0:r0 + n]
+    rows = lambda x: torch.clamp(
+        torch.arange(r0 - x, r0 + n + x, device=cuda), 0, 59)
+    planes = atrous.View(*[a[rows(e)] for a in (view.pos, view.nrm,
+                                                 view.mat_hash, view.valid)])
+    got = atrous.run_level(img[rows(pad)], planes, level, *sig, e_img=pad,
+                           e_view=e)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,strided", [(4, False), (5, True)])
+def test_atrous_denoise_launches_only_its_levels(cuda, levels, strided):
+    """render/denoise.atrous_denoise on the card, the direct call's 4 levels
+    on a full view and the indirect call's 5 on a strided one: the torch
+    levels' result bit for bit, `levels` launches counted, no host sync
+    (set_sync_debug_mode("error")) and no device kernel but the level
+    kernels (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eidola_tpu_torch.ops import atrous
+    from eidola_tpu_torch.render import denoise as D
+
+    img, view, sig = _atrous_case(90, 160, 11 + levels, cuda, strided)
+    want = img
+    for level in range(levels):
+        want = D.atrous_level(want, view, level, *sig)
+    D.atrous_denoise(img, view, levels, *sig)      # loads the kernel
+    torch.cuda.synchronize()
+    before = atrous.LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = D.atrous_denoise(img, view, levels, *sig)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert atrous.LAUNCHES == before + levels
+    dev_type = torch.autograd.DeviceType.CUDA
+    kernels = [e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == dev_type
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    assert len(kernels) == levels, kernels
+    assert all("atrous_level_kernel" in k for k in kernels), kernels
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_default_frame_denoises_through_nine_level_launches(cuda,
+                                                            monkeypatch):
+    """A default cornell frame on the card adds 4 + 5 to
+    ops/atrous.LAUNCHES, and equals, bit for bit, the same frame with the
+    torch levels monkeypatched into its denoiser."""
+    from eidola_tpu_torch.models.scenes import load_scene
+    from eidola_tpu_torch.ops import atrous
+    from eidola_tpu_torch.render import denoise as D
+    from eidola_tpu_torch.render import frame as RF
+    from eidola_tpu_torch.render.config import RenderConfig
+
+    scene, cam = load_scene("cornell", device=cuda)
+    cfg = RenderConfig(width=96, height=64)
+    before = atrous.LAUNCHES
+    got = _frames(scene, cam, cfg, 1)
+    assert atrous.LAUNCHES - before == 9 == (cfg.denoise_direct_levels
+                                             + cfg.denoise_indirect_levels)
+
+    def plain(img, view, levels, *sig):
+        for level in range(levels):
+            img = D.atrous_level(img, view, level, *sig)
+        return img
+
+    monkeypatch.setattr(RF, "atrous_denoise", plain)
+    want = _frames(scene, cam, cfg, 1)
+    assert atrous.LAUNCHES - before == 9
+    a, b = list(_leaves(got)), list(_leaves(want))
+    assert len(a) == len(b) > 10
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
