@@ -31,10 +31,7 @@ drains.  In order:
    block means and its block are printed): the headless app's frames
    with no --orbit are the bench's (tests/test_torch_fullsize.py);
 5. GI-xla phase: the same default frame under EIDOLA_TRAV=xla at
-   960x540, 1 frame, so the drain kernels run on sorted GI rays; the
-   torch walk's largest call runs again under EIDOLA_COMPACT=0 and 1
-   (staged live-packet compaction) in turns on the same rays: hits,
-   steps and leaf events bitwise equal, with the times and the stages;
+   960x540, 1 frame, so the drain kernels run on sorted GI rays;
 6. standin phase: the JAX bench's headline frame, bistro_standin (2.89M
    instanced triangles, textures, alpha-MASK foliage split into a flat
    BVH) at 1920x1080 with the default RenderConfig and the alpha HitTest
@@ -82,20 +79,17 @@ drains.  In order:
    as its bare launch beside the torch level and the level's bytes and
    operations bounds; each whole call bitwise against the torch levels,
    with its device kernels both ways (profiler);
-7. options phase: the same frame under each of the JAX package's build
-   and trace options, the switch in the environment: (s) EIDOLA_SBVH=1,
-   (f) EIDOLA_ALPHA_FLAT=0, (c) EIDOLA_ALPHA_CULL=1, (d)
-   EIDOLA_DI_SHADOW=sorted ((c) and (d) on the standin phase's scene);
-   each prints its build, frame 2 and stages beside the standin phase's,
-   its walk launches and its image and primary hits against the standin
-   frame (bounds: (s), (c), (d) bitwise, a primary triangle differing
-   only at an exact-t tie; (f) mean abs 2e-3, max abs 5e-2 on all but
-   100 pixels, under 100 primary hits at another depth); (s) the
-   alpha BVH's build, nodes and duplicated references, (s) and (f) their largest alpha walk against the default alpha BVH on
-   the same rays (steps and leaf events a packet) and bitwise against
-   walk_ref, (c) the share of rays culled; then one more standin frame
-   under EIDOLA_COUNT_RAYS=1: the live rays per front door and the
-   Mrays/s they give at the standin frame's time;
+7. options phase: the same frame under the JAX package's build option
+   (f) EIDOLA_ALPHA_FLAT=0, the switch in the environment; it prints its
+   build, frame 2 and stages beside the standin phase's, its walk
+   launches and its image and primary hits against the standin frame
+   (bounds: mean abs 2e-3, max abs 5e-2 on all but 100 pixels, under
+   100 primary hits at another depth), the instanced alpha BVH's nodes
+   and leaf pool, and its largest alpha walk against the default alpha
+   BVH on the same rays (steps and leaf events a packet) and bitwise
+   against walk_ref; then one more standin frame under
+   EIDOLA_COUNT_RAYS=1: the live rays per front door and the Mrays/s
+   they give at the standin frame's time;
 8. interactive phase: bistro_standin at 1920x1080, no switch set, 4
    frames, with --orbit 0.01 --restir
    spatiotemporal --shadow-cadence 4 --primary-seed: the camera moves
@@ -218,7 +212,7 @@ drains.  In order:
    bistro_flat DI and GI frames, the standin frame, the interactive
    frame, the GLB frame, the viewer, the multidevice (b) rank, the
    standin DI frames with the fused and the mxu drains, the options
-   phase's SBVH and instanced alpha walks): that phase's launches and
+   phase's instanced alpha walk): that phase's launches and
    the kernel's error, times (`ms` the wrapper call, `kernel_ms` the
    kernel alone) and bound on the phase's largest call, after a line
    with the seconds of each phase and one with the script's seconds in
@@ -1050,81 +1044,37 @@ def seed_effect(call, label) -> None:
 
 class SceneWatch:
     """While active, headless.load_scene returns `reuse` (a loaded (scene,
-    camera)) when one is given, else loads as usual and times each host
-    build of a flat alpha BVH (scene/data.build_bvh_np, which an
-    instanced scene calls for that alone); either way it keeps what it
-    returned in `loaded` and the alpha BVH's walk table, so that `key` can
-    give that BVH's walk calls the suffix "+alpha"."""
+    camera)) when one is given, else loads as usual; either way it keeps
+    what it returned in `loaded` and the alpha BVH's walk table, so that
+    `key` can give that BVH's walk calls the suffix "+alpha"."""
 
     def __init__(self, reuse=None):
         self.reuse, self.loaded = reuse, None
-        self.alpha_ptr, self.alpha_s = None, []
+        self.alpha_ptr = None
 
     def __enter__(self):
         from eidola_tpu_torch.app import headless
-        from eidola_tpu_torch.scene import data
 
-        self.orig = headless.load_scene, data.build_bvh_np
+        self.orig = headless.load_scene
 
         def load(name, *, device):
-            self.loaded = self.reuse or self.orig[0](name, device=device)
+            self.loaded = self.reuse or self.orig(name, device=device)
             alpha = self.loaded[0].bvh_alpha
             self.alpha_ptr = None if alpha is None else alpha.walk.data_ptr()
             return self.loaded
 
-        def build(*args, **kw):
-            t0 = time.perf_counter()
-            out = self.orig[1](*args, **kw)
-            self.alpha_s.append(time.perf_counter() - t0)
-            return out
-
-        headless.load_scene, data.build_bvh_np = load, build
+        headless.load_scene = load
         return self
 
     def __exit__(self, *exc):
         from eidola_tpu_torch.app import headless
-        from eidola_tpu_torch.scene import data
 
-        headless.load_scene, data.build_bvh_np = self.orig
+        headless.load_scene = self.orig
 
     def key(self, name, args, kw):
         key = name + ("+inst" if kw.get("inst") is not None else "")
         return key + ("+alpha" if args[0].data_ptr() == self.alpha_ptr
                       else "")
-
-
-class ReachWatch:
-    """While active, counts for every alpha pre-cull (tracer._reach_boxes)
-    the live rays it is given (t_max >= t_min) and those it culls (device
-    sums, read after the run)."""
-
-    def __enter__(self):
-        import torch
-
-        from eidola_tpu_torch.render import tracer
-
-        self.orig, self.counts = tracer._reach_boxes, []
-
-        def reach(boxes, o, d, t_min, t_max):
-            out = self.orig(boxes, o, d, t_min, t_max)
-            f32 = dict(dtype=torch.float32, device=out.device)
-            live = (torch.as_tensor(t_max, **f32)
-                    >= torch.as_tensor(t_min, **f32)).expand(out.shape)
-            self.counts.append((live.sum(), (live & ~out).sum()))
-            return out
-
-        tracer._reach_boxes = reach
-        return self
-
-    def __exit__(self, *exc):
-        from eidola_tpu_torch.render import tracer
-
-        tracer._reach_boxes = self.orig
-
-    def shares(self) -> tuple[int, int, int]:
-        """(calls, live rays given, rays culled)."""
-        return (len(self.counts), sum(int(a) for a, _ in self.counts),
-                sum(int(b) for _, b in self.counts))
 
 
 class LedgerWatch:
@@ -1160,30 +1110,23 @@ class LedgerWatch:
 
 
 class Environ:
-    """While active, sets the environment variables `env` (and the port's
-    bvh.SBVH, which reads EIDOLA_SBVH at import), then restores them."""
+    """While active, sets the environment variables `env`, then restores
+    them."""
 
     def __init__(self, env: dict):
         self.env = env
 
     def __enter__(self):
-        from eidola_tpu_torch.ops import bvh
-
         self.saved = {k: os.environ.get(k) for k in self.env}
-        self.sbvh = bvh.SBVH
         os.environ.update(self.env)
-        bvh.SBVH = os.environ.get("EIDOLA_SBVH", "0") == "1"
         return self
 
     def __exit__(self, *exc):
-        from eidola_tpu_torch.ops import bvh
-
         for k, v in self.saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-        bvh.SBVH = self.sbvh
 
 
 def _image_held(res, base, pixels: int = 0) -> tuple[str, bool]:
@@ -1276,31 +1219,24 @@ def alpha_walk_ab(label, call, base_alpha) -> None:
           flush=True)
 
 
-OPTIONS = (   # tag, environment, reuses the default scene, and the
-    # pixels that may be past the max bound and at another depth than the
-    # default frame's (0: bitwise); (f) read 2 and 18 of 2073600
-    ("s", {"EIDOLA_SBVH": "1"}, False, 0),
-    ("f", {"EIDOLA_ALPHA_FLAT": "0"}, False, 100),
-    ("c", {"EIDOLA_ALPHA_CULL": "1"}, True, 0),
-    ("d", {"EIDOLA_DI_SHADOW": "sorted"}, True, 0),
+OPTIONS = (   # tag, environment, and the pixels that may be past the
+    # max bound and at another depth than the default frame's; (f) read 2
+    # and 18 of 2073600
+    ("f", {"EIDOLA_ALPHA_FLAT": "0"}, 100),
 )
 
 
 def options_phase(base, base_loaded):
-    """The JAX package's build and trace options on the standin frame
-    (bistro_standin 1920x1080, default RenderConfig with the HitTest,
-    the default traversal, 2 frames each through the headless entry
-    point, the switch set in the environment): (s) EIDOLA_SBVH=1, (f)
-    EIDOLA_ALPHA_FLAT=0, (c) EIDOLA_ALPHA_CULL=1, (d)
-    EIDOLA_DI_SHADOW=sorted; (c) and (d) reuse
-    the default frame's scene (`base_loaded`).  Each against `base`, the
+    """The JAX package's build option on the standin frame (bistro_standin
+    1920x1080, default RenderConfig with the HitTest, the default
+    traversal, 2 frames through the headless entry point, the switch set
+    in the environment): (f) EIDOLA_ALPHA_FLAT=0, against `base`, the
     default standin frame of this call: frame 2's time and stages, the
     image (bound: the sharded frame's), the primary hits, the walk
-    launches; (s) and (f) also their builds and the largest alpha walk
-    against the default alpha BVH on the same rays, checked bitwise
-    against walk_ref; (c) the share of rays culled.  Then the ray ledger
-    (EIDOLA_COUNT_RAYS=1) on one more default frame.  Returns rows for
-    the kernels line."""
+    launches, the instanced alpha BVH and its largest alpha walk against
+    the default alpha BVH on the same rays, checked bitwise against
+    walk_ref.  Then the ray ledger (EIDOLA_COUNT_RAYS=1) on one more
+    default frame.  Returns rows for the kernels line."""
     import torch
 
     from eidola_tpu_torch.ops import bvh_walk
@@ -1311,65 +1247,42 @@ def options_phase(base, base_loaded):
           + json.dumps({k: round(v, 3) for k, v in
                         base["stage_ms_per_frame"].items()}), flush=True)
     rows = []
-    for tag, env, reuse, pixels in OPTIONS:
+    alpha_key = "walk_closest+inst+alpha"
+    for tag, env, pixels in OPTIONS:
         label = f"options ({tag}) " + " ".join(f"{k}={v}"
                                                  for k, v in env.items())
-        watch = SceneWatch(base_loaded if reuse else None)
+        watch = SceneWatch()
         walks = Capture(bvh_walk, WALKS, lambda a: a[2].shape[1], watch.key)
-        alpha_key = ("walk_closest+inst+alpha" if tag == "f"
-                     else "walk_closest+alpha")
-        extra = (ReachWatch(),) if tag == "c" else ()
         with Environ(env):
             launches, res = run_phase(
                 label, STANDIN, (1080, 1920, 3), 2, None, [walks],
                 ("walk_closest+inst", "walk_any+inst", alpha_key),
-                DRAINS + MXU, watch=(watch, *extra))
+                DRAINS + MXU, watch=(watch,))
         check_standin(res)
         check_calls(label, launches, walks.sizes)
-        scene = res["scene"]
-        alpha = scene.bvh_alpha
+        alpha = res["scene"].bvh_alpha
         ms2 = res["frame_ms"][1]
-        print(f"{label}: scene build {res['load_s']:.1f}s"
-              + (" (the default frame's scene, reused)" if reuse else "")
-              + f"; frame 2 {ms2:.1f} ms against the default's {base_ms:.1f}"
+        print(f"{label}: scene build {res['load_s']:.1f}s; frame 2 "
+              f"{ms2:.1f} ms against the default's {base_ms:.1f}"
               f" ({100.0 * (ms2 / base_ms - 1.0):+.1f}%); walk launches "
               + json.dumps({k: launches[k] for k in WALKS}), flush=True)
-        if tag == "s":
-            pid = alpha.prim_id
-            refs = int((pid >= 0).sum())
-            tris = int(torch.unique(pid[pid >= 0]).numel())
-            print(f"{label}: the alpha BVH alone built in "
-                  + ", ".join(f"{t:.1f}" for t in watch.alpha_s)
-                  + f" s; {alpha.walk.shape[0]} nodes (the default's "
-                  f"{base_loaded[0].bvh_alpha.walk.shape[0]}), {refs} "
-                  f"references to {tris} triangles: "
-                  f"{100.0 * (refs / tris - 1.0):.2f}% duplicated", flush=True)
-        if tag == "f":
-            print(f"{label}: the alpha BVH instanced: "
-                  f"{alpha.walk.shape[0]} nodes, a {alpha.leaf_blocks.shape[0]}"
-                  f"-leaf pool under {alpha.inst_inv.shape[0]} instances",
-                  flush=True)
-        if tag == "c":
-            calls, live, culled = extra[0].shares()
-            print(f"{label}: {calls} pre-culls culled {culled} of {live} "
-                  f"live rays ({culled / max(live, 1):.4f})", flush=True)
+        print(f"{label}: the alpha BVH instanced: "
+              f"{alpha.walk.shape[0]} nodes, a {alpha.leaf_blocks.shape[0]}"
+              f"-leaf pool under {alpha.inst_inv.shape[0]} instances",
+              flush=True)
         held, ok = _image_held(res, base, pixels)
         print(f"{label}: against the default frame: {held}", flush=True)
         if not ok:
             fail(f"{label}: the image is past the bounds of the default "
                  f"frame ({held})")
-        if tag in ("s", "f"):
-            alpha_walk_ab(label, walks.args[alpha_key],
-                          base_loaded[0].bvh_alpha)
-            rows.append(("walk_closest", "options (" + tag + ") standin "
-                         "1920x1080 default traversal, "
-                         + ("SBVH alpha BVH" if tag == "s"
-                                                 else "instanced alpha BVH"),
-                         len(walks.sizes[alpha_key]),
-                         check_walk("walk_closest", walks.args[alpha_key],
-                                    f"largest options ({tag}) alpha-BVH "
-                                    f"traversal")))
-        del res, scene, alpha, walks, watch
+        alpha_walk_ab(label, walks.args[alpha_key], base_loaded[0].bvh_alpha)
+        rows.append(("walk_closest", "options (" + tag + ") standin "
+                     "1920x1080 default traversal, instanced alpha BVH",
+                     len(walks.sizes[alpha_key]),
+                     check_walk("walk_closest", walks.args[alpha_key],
+                                f"largest options ({tag}) alpha-BVH "
+                                f"traversal")))
+        del res, alpha, walks, watch
         torch.cuda.empty_cache()
     # the default frame once more on its scene: how far frame 2 drifts
     # within the call
@@ -1413,50 +1326,6 @@ def ledger_frame(base, base_loaded) -> None:
         + f"; {int(total)} in all, {total / base_ms / 1e3:.3f} Mrays/s at "
         f"the default frame 2's {base_ms:.1f} ms; the counted frame against"
         f" the default: " + _image_held(res, base)[0], flush=True)
-
-
-def compaction_check(cap, label) -> None:
-    """The largest torch-walk call of a phase (ops/bvh.closest_hit or
-    any_hit, captured) again under EIDOLA_COMPACT=0 and 1, in turns 0, 1,
-    1, 0 on the same rays: hits and the step and event counts must be
-    bitwise equal; prints the times and the stages (capacity, step it
-    began at)."""
-    import torch
-
-    from eidola_tpu_torch.ops import bvh
-
-    name = max(cap.sizes, key=lambda k: max(cap.sizes[k]))
-    args, kw = cap.args[name]
-    fn = bvh.closest_hit_stats if name == "closest_hit" else bvh.any_hit_stats
-    runs = {}
-    for mode in ("0", "1", "1", "0"):
-        with Environ({"EIDOLA_COMPACT": mode}):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rec, st = fn(*args, **kw)
-            torch.cuda.synchronize()
-            runs.setdefault(mode, []).append(
-                (rec, st, (time.perf_counter() - t0) * 1e3))
-    (r0, s0, _), (r1, s1, _) = runs["0"][0], runs["1"][0]
-    pairs = zip(r0, r1) if name == "closest_hit" else [(r0, r1)]
-    same = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32
-                           else a, b.view(torch.int32)
-                           if b.dtype == torch.float32 else b)
-               for a, b in pairs)
-    counts = {k: (s0[k], s1[k]) for k in ("events", "steps", "rounds")}
-    if not same or any(a != b for a, b in counts.values()):
-        fail(f"compaction ({label}): the compacted walk differs from the "
-             f"uncompacted one (hits equal {same}, counts {counts})")
-    R = args[1].shape[0]
-    print(f"compaction ({label}): largest torch-walk call {name}, {R} rays "
-          f"({-(-R // 128)} packets); hits bitwise equal, events "
-          f"{s0['events']}, steps {s0['steps']}, rounds {s0['rounds']} "
-          f"equal; live_steps {s0['live_steps']} of "
-          f"{s0['steps'] * (-(-R // 128))} packet-steps; ms uncompacted "
-          + ", ".join(f"{m:.1f}" for *_, m in runs["0"]) + ", compacted "
-          + ", ".join(f"{m:.1f}" for *_, m in runs["1"])
-          + f"; stages (capacity, step it began at) {s1['stages']}",
-          flush=True)
 
 
 def write_inputs(tmp: str) -> tuple[str, str, dict]:
@@ -2690,13 +2559,8 @@ def main() -> None:
     reference_check("GI", "bistro_flat", gi)
     del gi
     lap("GI")
-    from eidola_tpu_torch.ops import bvh
-
-    tw_cap = Capture(bvh, ("closest_hit", "any_hit"), lambda a: a[1].shape[0])
     run_phase("GI (xla, 960x540)", GI_XLA_ARGS, (540, 960, 3), 1, "xla",
-              [gx_cap, tw_cap], DRAINS, WALKS + MXU)
-    compaction_check(tw_cap, "GI xla 960x540")
-    del tw_cap
+              [gx_cap], DRAINS, WALKS + MXU)
     torch.cuda.empty_cache()
     lap("GI (xla, 960x540)")
 

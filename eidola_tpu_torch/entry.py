@@ -24,8 +24,8 @@ runs `entry("cuda")`'s step once on the card, then
      still row-sharded;
   3. mini_grove (instanced trees, alpha-MASK leaf cards, the HitTest on,
      2 alpha hops) at the same size, one step under
-     EIDOLA_ALPHA_MARCH=queue and EIDOLA_ALPHA_CULL=1 (the band-local
-     queue march and the pre-cull), held to the same bounds.
+     EIDOLA_ALPHA_MARCH=queue (the band-local queue march), held to the
+     same bounds.
   It raises on any failed check and returns each part's readout.
 """
 from __future__ import annotations
@@ -89,7 +89,7 @@ def dryrun_rank(group, job: dict) -> dict:
     cfg, cfg_g = _small_cfgs(n)
     steps = render_rank(group, dict(cfg=cfg, frames=2, device=job["device"]),
                         scene, cam)
-    env = {"EIDOLA_ALPHA_MARCH": "queue", "EIDOLA_ALPHA_CULL": "1"}
+    env = {"EIDOLA_ALPHA_MARCH": "queue"}
     was = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:

@@ -7,24 +7,14 @@ eidola_tpu/ops/bvh.py).
   tables from `ops/bvh_oct.py`) and always emits the f32 coefficient
   table the fused drains read.  `prim_ids`/`n_tris_global` build a
   subset BVH (the opaque/alpha split) that reports external ids.
-  `spatial` / SBVH (EIDOLA_SBVH) builds the spatial-split topology,
-  `octant` / OCT (EIDOLA_OCT) the octant tables, EIDOLA_LEAF sets the
-  leaf size on the card.
+  `octant` / OCT (EIDOLA_OCT) builds the octant tables, EIDOLA_LEAF sets
+  the leaf size on the card.
 - `_traverse` walks 128-ray packets over the (octant) walk table with
   torch ops: the slab test per packet, leaf events pushed into a
   per-packet queue of depth QUEUE, and a drain whenever any queue fills
   or the walk ends.  The drain compacts the queued events and intersects
   all of them in one launch.  Draining in one launch instead of CHUNK
   slices changes only which hit wins an exact-t tie.
-- Staged live-packet compaction (EIDOLA_COMPACT=1;
-  eidola_tpu/ops/bvh.py:1006-1067): after a drain, when the live packets
-  fit the next capacity (4x smaller, at least COMPACT_MIN packets, at
-  most four stages) the walk goes on over those packets alone and
-  scatters their results back at the end.  Packets are independent, so
-  hits and the step and event counts are those of the uncompacted walk.
-  The JAX package's "auto" turns it on off the CPU; here "auto" leaves
-  it off on every device, since on the card the walk is bound by its
-  launches, which compaction does not cut (PERF.md).
 - `closest_hit_stats` / `any_hit_stats` return the walk's counters.
 - With `inst` (an `ops/bvh_instanced.InstIndex`) leaf ids index a global
   leaf table: each event reads its shared mesh leaf row and moves its
@@ -52,16 +42,8 @@ LEAF_SIZE_CUDA = int(os.environ.get("EIDOLA_LEAF", "64"))
 LEAF_SIZE_CPU = 8
 PACKET = 128
 QUEUE = 32
-# frontier size of the alpha pre-cull's cover table (collect_frontier)
-CULL_K = int(os.environ.get("EIDOLA_CULL_K", "64"))
 # octant walk tables by default; EIDOLA_OCT=0 builds none
 OCT = os.environ.get("EIDOLA_OCT", "1") == "1"
-# spatial-split build (ops/bvh_build.build_sbvh_topology) by default;
-# read at each build, so a caller may set it after import
-SBVH = os.environ.get("EIDOLA_SBVH", "0") == "1"
-# the smallest compaction stage, in packets (EIDOLA_COMPACT_MIN's default
-# in the JAX package)
-COMPACT_MIN = 512
 _BIG = 1e30
 # walk steps between host checks of the loop condition; the step itself
 # is gated on the device-side condition, so this changes no result
@@ -80,7 +62,6 @@ class BVH(NamedTuple):
     leaf_anchor: torch.Tensor  # (L, 3) f32
     walk_oct: Optional[torch.Tensor] = None   # (8*N, 8) octant walk tables
     slot_of_tri: Optional[torch.Tensor] = None  # (T,) int64
-    cull_boxes: Optional[torch.Tensor] = None   # (K, 6) f32
 
     @property
     def leaf_size(self) -> int:
@@ -119,8 +100,7 @@ def morton3d(p01: np.ndarray) -> np.ndarray:
 
 def build_bvh_np(v0, v1, v2, leaf_size: int, prim_ids=None,
                  n_tris_global: int | None = None, *,
-                 octant: bool | None = None,
-                 spatial: bool | None = None) -> dict:
+                 octant: bool | None = None) -> dict:
     """Host build (eidola_tpu/ops/bvh.py:201-343): returns the BVH fields
     as numpy arrays.
 
@@ -128,13 +108,9 @@ def build_bvh_np(v0, v1, v2, leaf_size: int, prim_ids=None,
     opaque/alpha split): hit records report prim_ids[i] instead of the
     input position i, and slot_of_tri is sized n_tris_global (default
     max(prim_ids)+1) with -1 for ids this BVH does not own.
-    octant: build the octant walk tables (default OCT).  spatial: the
-    SBVH topology (default SBVH); it bypasses the native builder, and a
-    triangle may then sit in several leaves (slot_of_tri keeps its last
-    slot, as the JAX package's build does)."""
+    octant: build the octant walk tables (default OCT)."""
     from ..native import build_bvh_native
-    from .bvh_build import build_sah_topology, build_sbvh_topology, \
-        collect_frontier, flatten_preorder
+    from .bvh_build import build_sah_topology, flatten_preorder
     from .bvh_oct import build_octant_tables
 
     v0 = np.asarray(v0, np.float32)
@@ -147,16 +123,11 @@ def build_bvh_np(v0, v1, v2, leaf_size: int, prim_ids=None,
     tb_max = np.maximum(np.maximum(v0, v1), v2)
     centroid = (tb_min + tb_max) * 0.5
 
-    use_spatial = SBVH if spatial is None else spatial
-    native = None if use_spatial else build_bvh_native(tb_min, tb_max,
-                                                       centroid, leaf_size)
+    native = build_bvh_native(tb_min, tb_max, centroid, leaf_size)
     if native is not None:
         bmin, bmax, escape, blk, leaf_tris = native
     else:
-        if use_spatial:
-            topo = build_sbvh_topology(v0, v1, v2, leaf_size)
-        else:
-            topo = build_sah_topology(tb_min, tb_max, centroid, leaf_size)
+        topo = build_sah_topology(tb_min, tb_max, centroid, leaf_size)
         bmin, bmax, escape, blk, leaf_tris = flatten_preorder(*topo,
                                                               leaf_size)
     n_nodes = bmin.shape[0]
@@ -213,7 +184,6 @@ def build_bvh_np(v0, v1, v2, leaf_size: int, prim_ids=None,
         walk_oct=build_octant_tables(walk) if (
             OCT if octant is None else octant) else None,
         slot_of_tri=slot_of_tri,
-        cull_boxes=collect_frontier(walk, CULL_K),
     )
 
 
@@ -234,15 +204,13 @@ def bvh_to_device(fields: dict, device) -> BVH:
 
 def build_bvh(v0, v1, v2, *, device, leaf_size: int | None = None,
               prim_ids=None, n_tris_global: int | None = None,
-              octant: bool | None = None,
-              spatial: bool | None = None) -> BVH:
+              octant: bool | None = None) -> BVH:
     """Build on the host and move to `device`; the leaf size follows the
     device unless given."""
     if leaf_size is None:
         leaf_size = leaf_size_for(device)
     return bvh_to_device(build_bvh_np(v0, v1, v2, leaf_size, prim_ids,
-                                      n_tris_global, octant=octant,
-                                      spatial=spatial), device)
+                                      n_tris_global, octant=octant), device)
 
 
 def _split_walk(tab):
@@ -334,20 +302,6 @@ def _to_object_space(xf, ox, oy, oz, dx, dy, dz):
             c(8) * dx + c(9) * dy + c(10) * dz)
 
 
-def _compact_caps(n_pkt: int) -> list[int]:
-    """Packet capacities of the walk's compaction stages
-    (eidola_tpu/ops/bvh.py:1016-1027): one stage unless EIDOLA_COMPACT is
-    "1"; then each stage holds a quarter of the last, at least
-    COMPACT_MIN packets, at most four stages in all."""
-    caps = [n_pkt]
-    if os.environ.get("EIDOLA_COMPACT", "auto") == "1":
-        c = n_pkt
-        while c > COMPACT_MIN and len(caps) < 4:
-            c = max(-(-c // 4), COMPACT_MIN)
-            caps.append(c)
-    return caps
-
-
 def _traverse(bvh, o, d, t_min, t_max, any_hit: bool, max_steps: int,
               inst=None, with_stats: bool = False):
     """Packet traversal core.  o, d: (R, 3); t_min/t_max: (R,) or scalars.
@@ -413,8 +367,7 @@ def _traverse(bvh, o, d, t_min, t_max, any_hit: bool, max_steps: int,
         live = node >= 0
         go = live.any() & (cnt < QUEUE).all() & (step < max_steps)
         if with_stats:
-            # the live-packet integral: steps x packets over it is what
-            # compaction can save (eidola_tpu/ops/bvh.py:639-642)
+            # the live-packet integral (eidola_tpu/ops/bvh.py:639-642)
             live_steps = live_steps + torch.where(go, live.sum(), 0)
         nid = node.clamp(min=0)
         row = box[oct_base + nid]                         # (n_pkt, 6)
@@ -508,56 +461,13 @@ def _traverse(bvh, o, d, t_min, t_max, any_hit: bool, max_steps: int,
             t_best = torch.where(tri_best >= 0, -_BIG, t_best)
         cnt = torch.zeros_like(cnt)
 
-    caps = _compact_caps(n_pkt)
-    stats["stages"] = [(n_pkt, 0)]
-    full = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, ix=ix, iy=iy,
-                iz=iz, t_min=t_min, oct_base=oct_base)
-    idx = None                       # the stage's packets in the full set
-    res = None                       # full-size results of earlier stages
-
-    def compact(cap: int):
-        """Continue over the live packets alone (survivors first, a stable
-        order, padded with retired ones to `cap`): stage-0 results are
-        kept whole, later stages' scattered back by their packet index."""
-        nonlocal node, t_best, tri_best, u_best, v_best, queue, cnt, n_pkt, \
-            idx, res, ox, oy, oz, dx, dy, dz, ix, iy, iz, t_min, oct_base
-        best = (t_best, tri_best, u_best, v_best)
-        if res is None:
-            res, idx = best, torch.arange(n_pkt, device=dev)
-        else:
-            for r, b in zip(res, best):
-                r[idx] = b
-        sel = torch.argsort((node < 0).to(torch.int8), stable=True)[:cap]
-        idx = idx[sel]
-        node, t_best, tri_best, u_best, v_best = (
-            a[sel] for a in (node, t_best, tri_best, u_best, v_best))
-        ox, oy, oz, dx, dy, dz, ix, iy, iz, t_min, oct_base = (
-            full[k][idx] for k in ("ox", "oy", "oz", "dx", "dy", "dz", "ix",
-                                   "iy", "iz", "t_min", "oct_base"))
-        queue = queue.new_zeros((cap, QUEUE))
-        cnt = cnt.new_zeros(cap)
-        n_pkt = cap
-        stats["stages"].append((cap, int(step)))
-
-    stage = 0
-    while True:
-        n_live = int((node >= 0).sum())
-        if n_live == 0 or int(step) >= max_steps:
-            break
-        while stage + 1 < len(caps) and n_live <= caps[stage + 1]:
-            stage += 1
-            compact(caps[stage])
+    while int((node >= 0).sum()) > 0 and int(step) < max_steps:
         go = torch.ones((), dtype=torch.bool, device=dev)
         while bool(go):
             for _ in range(_CHECK_EVERY):
                 go = walk_step()
         drain()
         stats["rounds"] += 1
-    if res is not None:
-        for r, b in zip(res, (t_best, tri_best, u_best, v_best)):
-            r[idx] = b
-        t_best, tri_best, u_best, v_best = res
-        n_pkt = t_best.shape[0]
     stats["steps"] = int(step)
     if with_stats:
         stats["live_steps"] = int(live_steps)
@@ -600,9 +510,8 @@ def closest_hit_stats(bvh, o, d, t_min, t_max, max_steps: int = 100_000,
     """closest_hit + the walk's counters (eidola_tpu/ops/bvh.py:1171-1183):
     leaf `events` (the drains' work), `chunks` (drain launches: the port
     drains each round in one launch where the JAX package cuts CHUNK
-    slices), walk `steps`, walk/drain `rounds`, `live_steps` (live
-    packets summed over the steps) and the compaction `stages` as
-    (capacity, step it began at).  `bvh` is a BVH, or an InstancedBVH
+    slices), walk `steps`, walk/drain `rounds` and `live_steps` (live
+    packets summed over the steps).  `bvh` is a BVH, or an InstancedBVH
     with `inst` its InstIndex."""
     return _traverse(bvh, o, d, t_min, t_max, False, max_steps, inst=inst,
                      with_stats=True)

@@ -3,7 +3,7 @@ grafted world-space walk (port of eidola_tpu/ops/bvh_instanced.py; ref
 src/accelstruct.cpp:132-162 TLAS over BLAS).
 
 - Host (`build_instanced_bvh_np`): per unique mesh one binary SAH BVH in
-  object space (`ops/bvh.build_bvh_np`; an SBVH under EIDOLA_SBVH).  For each instance the mesh's
+  object space (`ops/bvh.build_bvh_np`).  For each instance the mesh's
   walk rows are re-emitted with their boxes transformed to world space
   and grafted under a SAH top tree over the instance bounds
   (`build_sah_topology(..., leaf_size=1)`), giving one flat
@@ -15,8 +15,8 @@ src/accelstruct.cpp:132-162 TLAS over BLAS).
   instance's object space; a hit resolves to the global triangle id
   inst_tri_base[instance] + mesh-local prim id.
 
-Every array equals the JAX package's build bit for bit (the ints as
-int64 tensors).
+Every array equals its counterpart in the JAX package's build bit for
+bit (the ints as int64 tensors).
 """
 from __future__ import annotations
 
@@ -27,8 +27,8 @@ import torch
 
 from ..utils.transfer import to_device
 from . import bvh as _bvh
-from .bvh import CULL_K, build_bvh_np, leaf_size_for
-from .bvh_build import build_sah_topology, collect_frontier
+from .bvh import build_bvh_np, leaf_size_for
+from .bvh_build import build_sah_topology
 from .bvh_fused import build_leaf_tables_np
 from .bvh_oct import build_octant_tables
 
@@ -60,7 +60,6 @@ class InstancedBVH(NamedTuple):
     walk_oct: Optional[torch.Tensor] = None     # (8*N, 8) f32
     slot_of_tri: Optional[torch.Tensor] = None  # (T,) pool slot, -1 = not here
     inst_of_tri: Optional[torch.Tensor] = None  # (T,) instance id
-    cull_boxes: Optional[torch.Tensor] = None   # (K, 6) f32
 
     @property
     def leaf_size(self) -> int:
@@ -133,9 +132,6 @@ def build_instanced_bvh_np(meshes, instances, leaf_size: int,
     ids in the numbering of the full build."""
     if not meshes or not instances:
         raise ValueError("an instanced BVH needs meshes and instances")
-    # each BLAS follows bvh.SBVH, as the JAX package's build_bvh default
-    # does; an SBVH leaf may repeat a triangle of another leaf, and
-    # mesh_prim / slot_of_tri then name the same triangle from each slot
     blas = [build_bvh_np(v0, v1, v2, leaf_size,
                          None if mesh_prim_ids is None else mesh_prim_ids[k],
                          None if mesh_tris_full is None
@@ -279,7 +275,6 @@ def build_instanced_bvh_np(meshes, instances, leaf_size: int,
         walk_oct=build_octant_tables(walk) if _bvh.OCT else None,
         slot_of_tri=slot_of_tri,
         inst_of_tri=inst_of_tri,
-        cull_boxes=collect_frontier(walk, CULL_K),
     )
 
 

@@ -21,7 +21,6 @@ state (G-buffer words, reservoirs, visibility), decoded after it.
 from __future__ import annotations
 
 import math
-import os
 from typing import NamedTuple
 
 import torch
@@ -280,11 +279,10 @@ def direct_stage(cfg: RenderConfig, scene: SceneData, params: RenderParams,
         must = need
     shadow_tmax = torch.where(must, sel["dist"] * 0.999, -1.0)
     mark("shading_ris")
-    # EIDOLA_DI_SHADOW: "tiled" (default) traces the winners' shadow rays
-    # in image-tile packets, anything else as a sorted wavefront
+    # the winners' shadow rays in image-tile packets
     rng_state, occluded = trace_occlusion(
         cfg, scene, origin, sel["wi"], full(_TMIN), shadow_tmax, rng_state,
-        coherent=os.environ.get("EIDOLA_DI_SHADOW", "tiled") == "tiled")
+        coherent=True)
     mark("shadow_trace")
     if use_vis_reuse:
         occluded = torch.where(must, occluded, vis_prev < 0.5)

@@ -16,8 +16,6 @@ CPU, as in the JAX package); on MASK materials both give the same hits.
 A lap of the queue (`_march_lap`) is the kernels of ops/alpha_lap.py
 around the sort and the walk on the card, their plain versions here
 (`_lap_prep_ref`, `_lap_merge_ref`) on the CPU.
-Under EIDOLA_ALPHA_CULL=1 the rays whose segment misses the alpha BVH's
-cover boxes (`_reach_boxes`) are killed before the alpha traversal.
 `trace_radiance` is the estimator core the GI stage drives from
 G-buffer surfaces; its bounce loop is the JAX package's scanned body as
 a Python loop.
@@ -230,50 +228,6 @@ def _lap_merge_ref(sel, band: Band, rec2, lap: Lap, occl: bool) -> None:
     band.bleft[sel] = lap.bleft
 
 
-# ray-box pairs per batch of _reach_boxes: 2M rays x 8 boxes
-_REACH_PAIRS = 1 << 24
-
-
-def _reach_boxes(boxes, o, d, t_min, t_max):
-    """Conservative segment-vs-cover test (tracer.py:260-283): does
-    [t_min, t_max] of ray (o, d) meet any box of a frontier cover
-    (ops/bvh_build.collect_frontier)?  The cover holds all of the tree's
-    geometry, so False means the ray can hit nothing in that tree.  The
-    JAX package unrolls the K boxes; here they go in batches of
-    _REACH_PAIRS / R boxes, with the same f32 operations per box, so
-    `reach` is the same bit for bit.  boxes: (K, 6)."""
-    shape = tuple(o.shape[:-1])
-    f32 = dict(dtype=torch.float32, device=o.device)
-    t_min = torch.broadcast_to(torch.as_tensor(t_min, **f32), shape
-                               ).reshape(-1, 1)
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, **f32), shape
-                               ).reshape(-1, 1)
-    o = o.reshape(-1, 1, 3)
-    d = d.reshape(-1, 1, 3)
-    inv = torch.where(d >= 0.0, 1.0, -1.0) / torch.clamp(torch.abs(d),
-                                                         min=1e-12)
-    reach = torch.zeros(t_min.shape[0], dtype=torch.bool, device=o.device)
-    kc = max(1, _REACH_PAIRS // max(t_min.shape[0], 1))
-    for k in range(0, boxes.shape[0], kc):
-        b = boxes[k:k + kc]
-        t0 = (b[None, :, 0:3] - o) * inv
-        t1 = (b[None, :, 3:6] - o) * inv
-        tn = torch.amax(torch.minimum(t0, t1), dim=-1)
-        tf = torch.amin(torch.maximum(t0, t1), dim=-1)
-        reach |= ((tn <= tf) & (tf >= t_min) & (tn <= t_max)).any(1)
-    return reach.reshape(shape)
-
-
-def _alpha_cull_on(hop_bvh) -> bool:
-    """EIDOLA_ALPHA_CULL=1 (read at each call): before the mandatory
-    full-width alpha closest hit, kill the rays whose segment misses the
-    alpha tree's cover (t_max < t_min) and sort them into dead packets
-    that retire at once (tracer.py:286-298)."""
-    if getattr(hop_bvh, "cull_boxes", None) is None:
-        return False
-    return os.environ.get("EIDOLA_ALPHA_CULL", "0") == "1"
-
-
 def _march_mode(device) -> str:
     """EIDOLA_ALPHA_MARCH: auto (queue on the card, lockstep on the CPU,
     as the JAX package picks by backend) | queue | lockstep."""
@@ -310,17 +264,7 @@ def trace_closest(cfg: RenderConfig, scene: SceneData, o, d, t_min, t_max,
         a_tmax = torch.minimum(torch.broadcast_to(torch.as_tensor(
             t_max, dtype=torch.float32, device=rec.t.device), rec.t.shape),
             rec.t)
-        if _alpha_cull_on(hop_bvh):
-            # rays whose bounded segment misses the alpha cover cannot hit
-            # alpha geometry: dead, and sorted so their packets retire
-            reach = _reach_boxes(hop_bvh.cull_boxes, o, d, t_min, a_tmax)
-            a_tmax = torch.where(reach, a_tmax, -1.0)
-            rec_a = closest_hit_sorted(
-                hop_bvh, o, d, t_min, a_tmax,
-                max_steps=cfg.traversal_max_steps,
-                order=make_ray_order(hop_bvh, o, d, dead=~reach))
-        else:
-            rec_a = closest(hop_bvh, t_min, a_tmax)
+        rec_a = closest(hop_bvh, t_min, a_tmax)
     else:
         a_tmax = t_max
         rec_a = rec
@@ -377,12 +321,6 @@ def trace_occlusion(cfg: RenderConfig, scene: SceneData, o, d, t_min, t_max,
     cur_tmin = torch.broadcast_to(torch.as_tensor(t_min, **f32), shape)
     cur_tmax = torch.where(occluded, -1.0, torch.broadcast_to(
         torch.as_tensor(t_max, **f32), shape))
-    if _alpha_cull_on(hop_bvh):
-        # shadow segments that miss the alpha cover cannot be blocked by
-        # it: kill them before the mandatory closest hit, sorted dead-first
-        reach = _reach_boxes(hop_bvh.cull_boxes, o, d, cur_tmin, cur_tmax)
-        cur_tmax = torch.where(reach, cur_tmax, -1.0)
-        order = make_ray_order(hop_bvh, o, d, dead=~reach)
     if _march_mode(o.device) == "queue":
         # one full-width closest hit (every unoccluded ray must consult
         # the alpha set), then the test/re-trace march on the queue

@@ -11,9 +11,8 @@ bit, invalid tail rows included (mt_mxu: dead rays), and on
 drain_case's edges (the reciprocal's division branch, dets at the 1e-12
 threshold, all-dead and all-hit warps); the walk kernel
 against `walk_ref` with group=1 (its one-block-per-packet semantics), on
-flat and instanced BVHs, the options' SBVH and instanced alpha BVH
-among them, outputs and per-packet step and event counts alike; the
-compacted torch walk against the uncompacted one; the alpha march's lap
+flat and instanced BVHs, the instanced alpha BVH among them, outputs and
+per-packet step and event counts alike; the alpha march's lap
 kernels (`lap_prep`, `lap_merge`) against the plain lap on every lap of
 a standin frame at 1920x1080 and on small flat, instanced and
 untextured scenes under MASK and BLEND, whole frames alike, and their
@@ -200,31 +199,19 @@ def test_walk_kernel_matches_plain(cuda, name, leaf_size, instanced):
     assert torch.equal(stats, ref_stats)
 
 
-def _option_walk_case(dev, kind, leaf_size, monkeypatch):
-    """The walk on the options' BVHs: "sbvh", the spatial-split build of
-    three overlapping tree canopies' leaf cards (references repeated,
-    leaf boxes clipped), or "alpha_instanced", mini_grove's alpha half
-    built instanced (EIDOLA_ALPHA_FLAT=0); 1024 rays aimed at the
-    canopies, a third shadow-length, 24 dead."""
+def _option_walk_case(dev, leaf_size, monkeypatch):
+    """The walk on the instanced alpha BVH: mini_grove's alpha half built
+    instanced (EIDOLA_ALPHA_FLAT=0); 1024 rays aimed at the canopies, a
+    third shadow-length, 24 dead."""
     from eidola_tpu_torch.models import scenes as TS
 
     rng = np.random.default_rng(leaf_size)
-    if kind == "sbvh":
-        tree = TS._tree_mesh(np.random.default_rng(1), 256)
-        leaf = tree["mat_ids"] == 4
-        v = [np.concatenate([tree[k][leaf] + np.float32([3.0 * i, 0, 0])
-                             for i in range(3)]) for k in ("v0", "v1", "v2")]
-        bvh = TB.build_bvh(*v, device=dev, leaf_size=leaf_size, spatial=True)
-        occ = bvh.prim_id >= 0
-        assert int(occ.sum()) > int(torch.unique(bvh.prim_id[occ]).numel())
-        lo, hi, inst = [-1.5, 1.2, -1.5], [7.5, 3.8, 1.5], None
-    else:
-        monkeypatch.setenv("EIDOLA_ALPHA_FLAT", "0")
-        monkeypatch.setenv("EIDOLA_ALPHA_LEAF", str(leaf_size))
-        bvh = TS.mini_grove(device=dev)[0].bvh_alpha
-        assert hasattr(bvh, "leaf_mesh_row") and bvh.leaf_size == leaf_size
-        lo, hi = [-3.0, 0.5, -3.0], [3.0, 3.5, 3.0]
-        inst = (bvh.leaf_mesh_row, bvh.leaf_inst, bvh.inst_inv)
+    monkeypatch.setenv("EIDOLA_ALPHA_FLAT", "0")
+    monkeypatch.setenv("EIDOLA_ALPHA_LEAF", str(leaf_size))
+    bvh = TS.mini_grove(device=dev)[0].bvh_alpha
+    assert hasattr(bvh, "leaf_mesh_row") and bvh.leaf_size == leaf_size
+    lo, hi = [-3.0, 0.5, -3.0], [3.0, 3.5, 3.0]
+    inst = (bvh.leaf_mesh_row, bvh.leaf_inst, bvh.inst_inv)
     o = rng.uniform([-6, 0, 6], [10, 6, 9], (1024, 3)).astype(np.float32)
     d = (rng.uniform(lo, hi, (1024, 3)) - o).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -238,14 +225,12 @@ def _option_walk_case(dev, kind, leaf_size, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["sbvh", "alpha_instanced"])
 @pytest.mark.parametrize("leaf_size", [8, 64])
 @pytest.mark.parametrize("name", ["walk_closest", "walk_any"])
-def test_walk_kernel_on_option_bvhs(cuda, name, leaf_size, kind,
-                                    monkeypatch):
-    """The walk kernel takes the SBVH and the instanced alpha BVH
-    unchanged: bitwise against walk_ref(group=1), counts included."""
-    bvh, rays, inst = _option_walk_case(cuda, kind, leaf_size, monkeypatch)
+def test_walk_kernel_on_option_bvhs(cuda, name, leaf_size, monkeypatch):
+    """The walk kernel takes the instanced alpha BVH unchanged: bitwise
+    against walk_ref(group=1), counts included."""
+    bvh, rays, inst = _option_walk_case(cuda, leaf_size, monkeypatch)
     P = rays.shape[1]
     stats = torch.zeros((P, 2), dtype=torch.int32, device=cuda)
     ref_stats = torch.zeros_like(stats)
@@ -258,50 +243,6 @@ def test_walk_kernel_on_option_bvhs(cuda, name, leaf_size, kind,
     for a, b in zip(out, ref):
         assert torch.equal(_bits(a), _bits(b))
     assert torch.equal(stats, ref_stats)
-
-
-def _compaction_case(dev, instanced):
-    """The walk cases at leaf 8 with their rays tiled to 64 packets
-    (instanced: 128), three packets in four dead and every eighth one's
-    rays shadow-length, so the live count falls below a quarter after the
-    first drain round and again later."""
-    if instanced:
-        bvh, rays, _ = _instanced_walk_case(dev, 8, seed=3)
-        kw = dict(inst=bvh.inst_index)
-    else:
-        bvh, rays = _walk_case(dev, 8, seed=4)
-        kw = {}
-    rays = rays.repeat(1, 8, 1)
-    pk = torch.arange(rays.shape[1], device=dev)
-    rays[7] = torch.where((pk % 4 != 0)[:, None], -1.0, torch.where(
-        (pk % 8 == 4)[:, None], torch.clamp(rays[7], max=1.5), rays[7]))
-    o = rays[0:3].reshape(3, -1).T.contiguous()
-    d = rays[3:6].reshape(3, -1).T.contiguous()
-    return bvh, kw, (o, d, rays[6].reshape(-1), rays[7].reshape(-1))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("instanced", [False, True], ids=["flat", "instanced"])
-def test_compacted_torch_walk_on_the_card(cuda, instanced, any_hit,
-                                          monkeypatch):
-    """EIDOLA_COMPACT=1 on the card against 0: hits and the walk's counts
-    bitwise, the fused drain kernels on both sides."""
-    bvh, kw, rays = _compaction_case(cuda, instanced)
-    fn = TB.any_hit_stats if any_hit else TB.closest_hit_stats
-    monkeypatch.setattr(TB, "COMPACT_MIN", 2)
-    out = {}
-    for mode in ("0", "1"):
-        monkeypatch.setenv("EIDOLA_COMPACT", mode)
-        out[mode] = fn(bvh, *rays, **kw)
-    (r0, s0), (r1, s1) = out["0"], out["1"]
-    for a, b in (zip(r0, r1) if not any_hit else [(r0, r1)]):
-        assert torch.equal(_bits(a), _bits(b))
-    for k in ("events", "steps", "rounds", "live_steps"):
-        assert s0[k] == s1[k], k
-    n_pkt = rays[0].shape[0] // 128
-    assert s0["stages"] == [(n_pkt, 0)]
-    assert len(s1["stages"]) > 1 and s1["stages"][1][1] < s1["steps"]
 
 
 @pytest.mark.cuda

@@ -10,8 +10,8 @@ the repo's __graft_entry__.py) on the CPU.
 - `dryrun_multichip(2, "gloo", "cpu")` runs the JAX dry run's three
   parts on two spawned ranks: the partition-only check at
   padded_height(1080, 2), two sharded steps at 64x64 under the audit's
-  16-plane bound, and mini_grove under the queue march and the
-  pre-cull, each image finite.
+  16-plane bound, and mini_grove under the queue march, each image
+  finite.
 
 JAX is imported only inside the JAX test: the rank processes import
 eidola_tpu_torch.entry, never this module.
