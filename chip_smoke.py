@@ -79,6 +79,13 @@ drains.  In order:
    as its bare launch beside the torch level and the level's bytes and
    operations bounds; each whole call bitwise against the torch levels,
    with its device kernels both ways (profiler);
+   then the hit's shading state (ops/shade_state.py): one standin frame
+   with its get_state calls kept and 6 launches counted in
+   shade_state.LAUNCHES (2 with a ray cone); on the largest call with a
+   cone and the largest without, the kernel bitwise against
+   get_state_ref on every field, timed as the wrapper and as its bare
+   launch (before the plain version) beside the torch body and the
+   call's bytes bound, with its device kernels both ways (profiler);
 7. options phase: the same frame under the JAX package's build option
    (f) EIDOLA_ALPHA_FLAT=0, the switch in the environment; it prints its
    build, frame 2 and stages beside the standin phase's, its walk
@@ -674,6 +681,7 @@ def bench_phase(loaded, load_s: float) -> None:
           f"and ray frames) {json.dumps(launches)}", flush=True)
     lap_check(scene, cam)
     atrous_check(scene, cam)
+    shade_check(scene, cam)
 
 
 def _lap_bytes(n: int, n_inst: int, textured: bool) -> int:
@@ -932,6 +940,132 @@ def atrous_check(scene, cam) -> None:
         print(f"atrous: the {name} call ({n} levels at {w}x{h}) bitwise "
               f"equal to the torch levels; {call_ms:.4f} ms vs plain "
               f"{plain_call_ms:.4f} ms; device kernels {n} through the "
+              f"kernel, {_profiled_kernels(plain)} plain (profiler)",
+              flush=True)
+
+
+def _shade_bytes(args, state, cone: bool) -> int:
+    """Bytes one get_state call must move through csrc/shade_state.cu,
+    each byte it needs counted once: the lanes' own inputs (the record, 20
+    bytes; the ray, 24, an origin broadcast over the lanes once) and the
+    state written (97 a lane); of the scene's tables, the entries the hit
+    lanes touch, each once: attribute rows (normals, geometric normal,
+    uvs, colours, material: 88 bytes; the uv density with a cone, 4; a
+    normal-mapped row's tangents and handedness, 36), instances (their
+    tri_base and attr_base, 16; the normal rotation and sign, 40; the uv
+    scale with a cone, 4; the rotation where a normal map is read, 36),
+    materials (76) and the textures read (each one's size and wrap, 32,
+    and its atlas slice, or 4 texels of 16 bytes a level a lane where
+    that is less)."""
+    import torch
+
+    from eidola_tpu_torch.ops.shade_state import _lane_stride
+    from eidola_tpu_torch.scene.data import shade_row
+
+    scene, o, d, tri, t, u, v = args
+    lead, n = tuple(tri.shape), tri.numel()
+    total = 117 * n + sum(12 * (n if _lane_stride(k, a, lead) else 1)
+                          for k, a in (("o", o), ("d", d)))
+    row, inst = shade_row(scene, tri[state.valid])
+    mat = state.mat_id[state.valid]
+    m = scene.materials
+    mapped = m.normal_tex[mat] >= 0
+    uniq = lambda a: torch.unique(a).numel()
+    total += uniq(row) * (88 + 4 * cone) + uniq(row[mapped]) * 36
+    if inst is not None:
+        total += uniq(inst) * (60 if cone else 56) + uniq(inst[mapped]) * 36
+    total += uniq(mat) * 76
+    tex = scene.textures.data
+    if not tex.shape[0] == tex.shape[1] == 1:
+        for ids in (m.base_tex, m.mr_tex, m.emissive_tex, m.normal_tex):
+            used = ids[mat]
+            for tid in torch.unique(used[used >= 0]).tolist():
+                lanes = int((used == tid).sum())
+                total += 32 + min(tex[0].numel() * 4,
+                                  lanes * 64 * (2 if cone else 1))
+    return total
+
+
+def shade_check(scene, cam) -> None:
+    """The hit's shading state on the card (ops/shade_state.py): one
+    standin frame at 1920x1080 with every get_state call kept and counted
+    in shade_state.LAUNCHES (6: 2 with a ray cone, 4 without); on the
+    largest call with a cone and the largest without, the kernel against
+    get_state_ref (the torch body, on the same CUDA tensors) bitwise, on
+    every field; each timed (CUDA events) as the wrapper call and as its
+    bare launch beside its bytes bound at 3.35 TB/s, and profiled, before
+    any plain version runs; then the plain version timed and profiled."""
+    import torch
+
+    from eidola_tpu_torch import bench
+    from eidola_tpu_torch.ops import shade_state as K
+    from eidola_tpu_torch.render import direct, indirect, tracer
+    from eidola_tpu_torch.render import shade_state as RS
+    from eidola_tpu_torch.render.config import default_params, default_tonemap
+    from eidola_tpu_torch.render.frame import init_frame_state, make_step
+
+    dev = torch.device("cuda")
+    cfg = bench.frame_cfg(scene, 1920, 1080)
+    calls = []
+
+    def kept(*args, cone_angle=None):
+        calls.append((args, cone_angle))
+        return RS.get_state(*args, cone_angle=cone_angle)
+
+    mods = (direct, indirect, tracer)
+    params, tm = default_params(device=dev), default_tonemap(device=dev)
+    before = K.LAUNCHES
+    for m in mods:
+        m.get_state = kept
+    try:
+        make_step(cfg)(scene, cam, params, tm, init_frame_state(cfg, cam))
+        torch.cuda.synchronize()
+    finally:
+        for m in mods:
+            m.get_state = RS.get_state
+    counted = K.LAUNCHES - before
+    coned = [c is not None for _, c in calls]
+    if counted != len(calls) or counted != 6 or coned.count(True) != 2:
+        fail(f"shade_state: {counted} launches for {len(calls)} get_state "
+             f"calls, {coned.count(True)} with a cone (want 6 and 2)")
+    sizes = [a[3].numel() for a, _ in calls]
+    print(f"shade_state (standin 1920x1080 frame 0): {counted} launches a "
+          f"frame in shade_state.LAUNCHES, lanes {sizes} (cone "
+          f"{coned})", flush=True)
+    picked = [max((i for i, c in enumerate(coned) if c == want),
+                  key=lambda i: sizes[i]) for want in (True, False)]
+    # the kernel's readings first: a profile taken after thousands of
+    # plain kernels has been seen to miss launches
+    rows = []
+    for k in picked:
+        args, cone = calls[k]
+        launch, _ = K.launcher(*args, cone_angle=cone)
+        wrap_ms = time_ms(lambda: K.shade(*args, cone_angle=cone), 20)
+        kern_ms = time_ms(launch, 20)
+        kern_calls = _profiled_kernels(lambda: RS.get_state(
+            *args, cone_angle=cone))
+        rows.append((k, wrap_ms, kern_ms, kern_calls))
+    bits = lambda a: a.view(torch.int32) if a.dtype == torch.float32 else a
+    for k, wrap_ms, kern_ms, kern_calls in rows:
+        args, cone = calls[k]
+        label = (f"call {k} ({sizes[k]} lanes, "
+                 f"{'a' if cone is not None else 'no'} cone)")
+        got = RS.get_state(*args, cone_angle=cone)
+        want = RS.get_state_ref(*args, cone_angle=cone)
+        bad = {f: int((a != b).sum()) for f, a, b in zip(
+            RS.State._fields, got, want) if a.dtype != b.dtype
+            or not torch.equal(bits(a), bits(b))}
+        if bad:
+            fail(f"shade_state: {label} differs from get_state_ref in "
+                 f"{bad} values (the tolerance is bitwise)")
+        plain = lambda: RS.get_state_ref(*args, cone_angle=cone)
+        plain_ms = time_ms(plain, 3)
+        nbytes = _shade_bytes(args, want, cone is not None)
+        print(f"shade_state: {label}: bitwise equal to get_state_ref on "
+              f"all 13 fields; wrapper {wrap_ms:.4f} ms (kernel "
+              f"{kern_ms:.4f}) vs plain {plain_ms:.4f} ms; bound "
+              f"{nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes: {nbytes} at "
+              f"3.35 TB/s); device kernels {kern_calls} through the "
               f"kernel, {_profiled_kernels(plain)} plain (profiler)",
               flush=True)
 

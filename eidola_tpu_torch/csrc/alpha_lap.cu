@@ -12,6 +12,8 @@
 // the sort between them: render/tracer.py's `_march_lap` runs
 //   lap_prep -> the stable sort of its keys (ops/packets.sort_order) ->
 //   closest_hit_sorted(order=...) -> lap_merge.
+// The texture fetch and the instance search are csrc/scene_fetch.cuh's,
+// shared with csrc/shade_state.cu.
 //
 // lap_prep, one thread per queued lane k < n (i = sel[k], a band index):
 //   - the alpha test of render/tracer.py's `_alpha_passthrough` on the
@@ -52,13 +54,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "scene_fetch.cuh"
+
 namespace {
+
+using eidola::clamp_minf;
+using eidola::clampf;
 
 constexpr int kThreads = 256;
 constexpr int64_t kMask = 1;     // scene/data.py ALPHA_MASK
 constexpr int64_t kBlend = 2;    // ALPHA_BLEND
-constexpr int64_t kWrapClamp = 1;
-constexpr int64_t kWrapMirror = 2;
 
 // the band's flat planes, indexed by the queued band indices
 struct Band {
@@ -83,14 +88,8 @@ struct Tables {
     const int64_t* base_tex;     // (M,)
     const int64_t* alpha_mode;   // (M,)
     const float* alpha_cutoff;   // (M,)
-    const float* tex;            // (NT, TH, W2, 4)
-    const int64_t* tex_size;     // (NT, 2) level-0 (h, w)
-    const int64_t* tex_wrap;     // (NT, 2)
-    int64_t tex_h, tex_w2;       // TH, W2
-    int untextured;              // the 1x1 stack: every texture reads 1
-    const int64_t* tri_base;     // (I,) sorted; nullptr on a flat scene
-    const int64_t* attr_base;    // (I,)
-    int n_inst;
+    eidola::TexStack tex;
+    eidola::InstSearch inst;     // tri_base nullptr on a flat scene
 };
 
 // the lap's compact outputs, (n,) or (n, 3)
@@ -105,72 +104,6 @@ struct Lap {
     int64_t* bleft;
     int64_t* rng;
 };
-
-// torch.clamp on floats: NaN passes through
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-    return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float clamp_minf(float x, float lo) {
-    return isnan(x) ? x : fmaxf(x, lo);
-}
-
-// torch.remainder on int64: the sign of the divisor
-__device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t b) {
-    int64_t r = a % b;
-    if (r != 0 && ((r < 0) != (b < 0))) r += b;
-    return r;
-}
-
-// scene/textures.py _wrap_coord
-__device__ __forceinline__ int64_t wrap_coord(int64_t x, int64_t n,
-                                              int64_t mode) {
-    if (mode == kWrapMirror) {
-        const int64_t m = floor_mod(x, n * 2 > 1 ? n * 2 : 1);
-        return m >= n ? 2 * n - 1 - m : m;
-    }
-    if (mode == kWrapClamp) {
-        const int64_t c = x > 0 ? x : 0;
-        return c < n - 1 ? c : n - 1;
-    }
-    return floor_mod(x, n);
-}
-
-// the alpha of _bilinear_level at level 0 (xoff 0)
-__device__ float bilinear_alpha(const Tables& tb, int64_t tid, float uv0,
-                                float uv1) {
-    const int64_t h0 = tb.tex_size[tid * 2], w0 = tb.tex_size[tid * 2 + 1];
-    const int64_t h = h0 > 1 ? h0 : 1, w = w0 > 1 ? w0 : 1;
-    const float uu = uv0 * static_cast<float>(w) - 0.5f;
-    const float vv = uv1 * static_cast<float>(h) - 0.5f;
-    const float x0f = floorf(uu), y0f = floorf(vv);
-    const float fx = uu - x0f, fy = vv - y0f;
-    const int64_t x0i = static_cast<int64_t>(x0f);
-    const int64_t y0i = static_cast<int64_t>(y0f);
-    const int64_t wx = tb.tex_wrap[tid * 2], wy = tb.tex_wrap[tid * 2 + 1];
-    const int64_t x0 = wrap_coord(x0i, w, wx), x1 = wrap_coord(x0i + 1, w, wx);
-    const int64_t y0 = wrap_coord(y0i, h, wy), y1 = wrap_coord(y0i + 1, h, wy);
-    auto at = [&](int64_t y, int64_t x) {
-        return tb.tex[((tid * tb.tex_h + y) * tb.tex_w2 + x) * 4 + 3];
-    };
-    const float c00 = at(y0, x0), c01 = at(y0, x1);
-    const float c10 = at(y1, x0), c11 = at(y1, x1);
-    return (c00 * (1.0f - fx) + c01 * fx) * (1.0f - fy) +
-           (c10 * (1.0f - fx) + c11 * fx) * fy;
-}
-
-// scene/data.py shade_row: the attribute row of a global triangle id
-__device__ int64_t shade_row(const Tables& tb, int64_t tid) {
-    if (tb.tri_base == nullptr) return tid;
-    int lo = 0, hi = tb.n_inst;      // searchsorted(right=True)
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (tb.tri_base[mid] <= tid) lo = mid + 1;
-        else hi = mid;
-    }
-    const int i = lo - 1 > 0 ? lo - 1 : 0;
-    return tb.attr_base[i] + (tid - tb.tri_base[i]);
-}
 
 // ops/packets.py _expand_bits_u32
 __device__ __forceinline__ uint64_t expand_bits(uint64_t v) {
@@ -230,7 +163,8 @@ lap_prep_kernel(const int64_t* __restrict__ sel, int n, Band band,
     const float t = band.t[i], u = band.u[i], v = band.v[i];
 
     // the alpha test (render/tracer.py _alpha_passthrough)
-    const int64_t row = shade_row(tb, tri > 0 ? tri : 0);
+    int inst;
+    const int64_t row = eidola::shade_row(tb.inst, tri > 0 ? tri : 0, &inst);
     const int64_t mat = tb.tri_mat[row];
     const int64_t am = tb.alpha_mode[mat];
     const float* uvs = tb.tri_uv + row * 6;
@@ -238,10 +172,12 @@ lap_prep_kernel(const int64_t* __restrict__ sel, int n, Band band,
     const float uv0 = uvs[0] * w0 + uvs[2] * u + uvs[4] * v;
     const float uv1 = uvs[1] * w0 + uvs[3] * u + uvs[5] * v;
     float tex_a = 1.0f;
-    if (!tb.untextured) {
+    if (!tb.tex.untextured) {
         const int64_t tex_id = tb.base_tex[mat];
-        const float c = bilinear_alpha(tb, tex_id > 0 ? tex_id : 0, uv0, uv1);
-        if (tex_id >= 0) tex_a = c;
+        float c[4];
+        eidola::bilinear_level<3>(tb.tex, tex_id > 0 ? tex_id : 0, uv0, uv1,
+                                  0, c);
+        if (tex_id >= 0) tex_a = c[3];
     }
     const float opac = tb.base_color[mat * 4 + 3] * tex_a;
     uint32_t s = static_cast<uint32_t>(band.rng[i]);
@@ -343,8 +279,9 @@ int eidola_lap_prep(const int64_t* sel, int n, const float* o, const float* d,
     const Band band = make_band(o, d, tmax, tri, t, u, v, rng, pending,
                                 occluded, bleft);
     const Tables tb{tri_mat, tri_uv, base_color, base_tex, alpha_mode,
-                    alpha_cutoff, tex, tex_size, tex_wrap, tex_h, tex_w2,
-                    untextured, tri_base, attr_base, n_inst};
+                    alpha_cutoff,
+                    {tex, tex_size, tex_wrap, tex_h, tex_w2, untextured},
+                    {tri_base, attr_base, n_inst}};
     const Lap out = make_lap(lo, ld, ltn, ltx, lkeys, lgo, locc, lbleft, lrng);
     const int grid = (n + kThreads - 1) / kThreads;
     lap_prep_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

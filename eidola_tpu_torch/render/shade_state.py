@@ -1,7 +1,9 @@
 """Hit record -> shading state (port of eidola_tpu/render/shade_state.py;
 ref shaders/shade_state.glsl:63-221).  On an instanced scene a hit's
 global triangle id resolves to its shared pool row (`shade_row`), and the
-pool's object-space normals and tangents rotate into world space."""
+pool's object-space normals and tangents rotate into world space.  On
+the card `get_state` is one launch of ops/shade_state.py's kernel; CPU
+tensors take its torch body, `get_state_ref`."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -9,6 +11,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import octahedral as octa
+from ..ops import shade_state as shade_kernel
 from ..ops.math import cross, dot3, normalize
 from ..scene.data import SceneData, rot_apply, shade_row
 from ..scene.textures import sample_bilinear
@@ -43,7 +46,19 @@ def _bary_mix(attr3, u, v):
 
 def get_state(scene: SceneData, o, d, tri, t, u, v, cone_angle=None) -> State:
     """Shading state per lane from a closest-hit record; lanes with
-    tri < 0 get a zeroed state with valid=False."""
+    tri < 0 get a zeroed state with valid=False.  `cone_angle` (None, a
+    float or a 0-d tensor) turns on the textures' trilinear footprint.
+    The kernel on the card (bitwise equal to `get_state_ref`), the torch
+    body on the CPU."""
+    if tri.device.type == "cpu":
+        return get_state_ref(scene, o, d, tri, t, u, v, cone_angle)
+    return State(*shade_kernel.shade(scene, o, d, tri, t, u, v, cone_angle))
+
+
+def get_state_ref(scene: SceneData, o, d, tri, t, u, v,
+                  cone_angle=None) -> State:
+    """The plain version of `get_state` in torch: what the kernel
+    computes, op for op."""
     valid = tri >= 0
     tid, inst_id = shade_row(scene, torch.clamp(tri, min=0))
     fp = None

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
 # every csrc/<name>.cu; chip_smoke.py builds them all at once
-CUDA_SOURCES = ("alpha_lap", "atrous", "bvh_fused", "bvh_mxu", "bvh_walk")
+CUDA_SOURCES = ("alpha_lap", "atrous", "bvh_fused", "bvh_mxu", "bvh_walk",
+                "shade_state")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # the viewer renders from two threads; one builds and loads at a time

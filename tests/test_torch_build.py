@@ -8,6 +8,8 @@ here: `Build` only hashes until it is started.
 """
 import os
 
+import pytest
+
 from eidola_tpu_torch.utils.cuda_build import SRC_DIR, Build, local_includes
 
 HEAD = ["nvcc", "-O3"]
@@ -42,3 +44,13 @@ def test_key_follows_headers_and_flags(tmp_path):
     assert changed != out
     (tmp_path / "k.cu").write_text(src.read_text() + "\n")
     assert Build("k", str(src), HEAD).out != changed
+
+
+@pytest.mark.parametrize("name,headers", [
+    ("alpha_lap", ["scene_fetch.cuh"]), ("shade_state", ["scene_fetch.cuh"]),
+    ("atrous", []), ("bvh_walk", [])])
+def test_kernels_reach_their_shared_headers(name, headers):
+    """The lap and shading-state kernels share csrc/scene_fetch.cuh (the
+    texture fetch, the instance search), so its edits rebuild both."""
+    paths = local_includes(os.path.join(SRC_DIR, f"{name}.cu"))
+    assert paths[1:] == [os.path.join(SRC_DIR, h) for h in headers]
